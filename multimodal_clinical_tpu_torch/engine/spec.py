@@ -1,0 +1,48 @@
+"""ModelSpec — the declarative description of one model variant (port of
+``multimodal_clinical_tpu/engine/spec.py``, the fields slice 1 reads)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+# Training contracts (the five reference base classes, utils/BaseModel.py).
+CONTRACTS = ("jlogits", "jprobas", "ensemble", "ogm_ge", "qmf")
+# The port runs jprobas so far; the other four arrive with ROADMAP item A11.
+PORTED_CONTRACTS = ("jprobas",)
+
+
+def resolve_dtype(args) -> Optional[torch.dtype]:
+    """Compute dtype from the ``compute_dtype`` config key: 'bfloat16' ->
+    ``torch.bfloat16``; unset/'float32' -> None (modules compute in the
+    input dtype).  Params and BN statistics stay fp32 either way."""
+    name = getattr(args, "compute_dtype", None)
+    if not name or str(name) == "float32":
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown compute_dtype {name!r}")
+    return dtype
+
+
+@dataclasses.dataclass
+class ModelSpec:
+    module: nn.Module
+    contract: str = "jlogits"
+    num_modality: int = 2
+    # StepLR step_size (epochs) / gamma per model file
+    sched_step_size: int = 70
+    sched_gamma: float = 0.1
+    # (batch, generator, train) -> batch; runs inside the step
+    device_preprocess: Optional[Callable] = None
+
+    def __post_init__(self):
+        if self.contract not in CONTRACTS:
+            raise ValueError(f"unknown contract {self.contract!r}")
+        if self.contract not in PORTED_CONTRACTS:
+            raise NotImplementedError(
+                f"contract {self.contract!r} is not ported yet "
+                "(ROADMAP.md queue A, item 11: the other four contracts)")

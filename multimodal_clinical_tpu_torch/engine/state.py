@@ -1,0 +1,93 @@
+"""TrainState, LR schedule and optimizer (port of
+``multimodal_clinical_tpu/engine/state.py``).
+
+The JAX TrainState is an immutable pytree; here it is a small mutable
+object that the train step updates in place: the model and the optimizer
+own their tensors, ``ema`` is replaced each step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Iterable
+
+import torch
+from torch import nn
+
+from ..models.common import init_weights
+from ..utils.device import resolve_device
+from .spec import ModelSpec
+
+
+def make_lr_schedule(base_lr: float, use_scheduler: bool, steps_per_epoch: int,
+                     step_size_epochs: int, gamma: float,
+                     num_epochs: int) -> Callable[[int], float]:
+    """StepLR-per-epoch as a per-step piecewise-constant schedule
+    (utils/BaseModel.py:275-285): step -> learning rate."""
+    if not use_scheduler or step_size_epochs <= 0:
+        return lambda step: base_lr
+    boundaries = []
+    k = step_size_epochs
+    while k <= max(num_epochs, step_size_epochs):
+        boundaries.append(k * steps_per_epoch)
+        k += step_size_epochs
+
+    def schedule(step: int) -> float:
+        return base_lr * gamma ** sum(step >= b for b in boundaries)
+
+    return schedule
+
+
+def make_optimizer(params: Iterable[nn.Parameter], lr: float,
+                   momentum: float = 0.9, weight_decay: float = 1.0e-4,
+                   optimizer: str = "sgd") -> torch.optim.Optimizer:
+    """torch.optim.SGD(momentum, weight_decay): weight decay is added to
+    the gradient before the momentum buffer, whose first value is that
+    gradient — the JAX package's add_decayed_weights -> trace chain."""
+    if optimizer != "sgd":
+        raise NotImplementedError(
+            f"optimizer {optimizer!r} is not ported yet (slice 1 trains "
+            "VGGSound with SGD; ROADMAP.md queue A, slices 4-5)")
+    return torch.optim.SGD(params, lr=lr, momentum=momentum,
+                           weight_decay=weight_decay)
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    ema: torch.Tensor          # (M, C) fp32 EMA of batch-mean logits
+    seed: int                  # seeds the per-step generator
+    lr_schedule: Callable[[int], float]
+
+    def step_generator(self) -> torch.Generator:
+        return step_generator(self.seed, self.step)
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """CPU generator for one step's random draws (the JAX step's
+    ``fold_in(rng, step)``): the same draws whatever the device."""
+    return torch.Generator().manual_seed(
+        ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+
+
+def create_train_state(spec: ModelSpec, args: Any, seed: int,
+                       steps_per_epoch: int, device="cuda",
+                       momentum: float = 0.9,
+                       weight_decay: float = 1.0e-4) -> TrainState:
+    """Draw ``spec.module``'s weights from ``seed``, move it to ``device``
+    (channels_last), and build the optimizer and EMA state there."""
+    device = resolve_device(device)
+    model = init_weights(spec.module, torch.Generator().manual_seed(seed))
+    model = model.to(device=device, memory_format=torch.channels_last)
+    schedule = make_lr_schedule(
+        float(args.learning_rate), bool(getattr(args, "use_scheduler", False)),
+        steps_per_epoch, spec.sched_step_size, spec.sched_gamma,
+        int(getattr(args, "num_epochs", 1)))
+    optimizer = make_optimizer(model.parameters(), schedule(0), momentum,
+                               weight_decay)
+    ema = torch.zeros(spec.num_modality, int(args.num_classes),
+                      dtype=torch.float32, device=device)
+    return TrainState(step=0, model=model, optimizer=optimizer, ema=ema,
+                      seed=seed, lr_schedule=schedule)

@@ -1,0 +1,178 @@
+"""Scratch ResNet18 encoders (port of
+``multimodal_clinical_tpu/models/resnet.py``, the BasicBlock path).
+
+Public layout is the JAX one: NHWC in, NHWC out.  Inside, NHWC is permuted
+to NCHW, which is exactly ``channels_last``, so the convolutions run
+channels_last.  Module names follow the reference's scratch ResNet
+(cremad/backbone.py): ``conv1``, ``bn1``, ``layer{1..4}.{b}.conv{1,2}``,
+``bn{1,2}``, ``downsample.{0,1}``, so ``models/jax_weights.py`` maps the
+flax tree onto them one to one.
+
+Init matches cremad/backbone.py:136-142: kaiming-normal fan-out convs, BN
+scale ~ N(1, 0.02), BN bias 0.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import kaiming_normal_fan_out_
+
+_SLICE2 = "ROADMAP.md slice 2 (queue B, items 2 and 3)"
+
+
+class _BN(nn.Module):
+    """BatchNorm with the JAX package's default (flax ``nn.BatchNorm``)
+    semantics, which differ from ``torch.nn.BatchNorm2d``: statistics in
+    fp32, and the BIASED batch variance goes into ``running_var``
+    (momentum 0.1, eps 1e-5).  ``F.batch_norm`` computes the batch
+    statistics into scratch buffers (momentum 1 leaves the batch mean and
+    the unbiased variance there) and the running buffers are updated here
+    by hand.  The output is in ``dtype`` or, when None, in the promotion of
+    the input with fp32, as flax's is."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.momentum = 0.1
+        self.eps = 1e-5
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        nn.init.normal_(self.weight, 1.0, 0.02, generator=generator)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = self.dtype or torch.promote_types(x.dtype,
+                                                      self.weight.dtype)
+        if not self.training:
+            y = F.batch_norm(x, self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(out_dtype)
+        c = x.shape[1]
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        with torch.no_grad():
+            m = x.numel() // c
+            biased = var * ((m - 1) / m)
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                biased, alpha=self.momentum)
+        return y.to(out_dtype)
+
+
+class Conv(nn.Module):
+    """Bias-free k x k conv, padding k // 2 (the JAX package's ``_conv``);
+    computes in ``dtype``, or in the promotion of input and weight."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.stride = stride
+        self.padding = kernel // 2
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        kaiming_normal_fan_out_(self.weight, generator)
+
+    def compute_dtype(self, x: torch.Tensor) -> torch.dtype:
+        return self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype(x)
+        return F.conv2d(x.to(dtype), self.weight.to(dtype), None,
+                        self.stride, self.padding)
+
+
+class StemConv(Conv):
+    """7x7 / stride 2 / pad 3 stem; computes in ``dtype`` or the input's
+    dtype (flax ``StemConv``).  The space-to-depth form is not ported."""
+
+    def __init__(self, cin: int, width: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(cin, width, 7, 2, dtype)
+
+    def compute_dtype(self, x: torch.Tensor) -> torch.dtype:
+        return self.dtype or x.dtype
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 downsample: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = Conv(cin, planes, 3, stride, dtype)
+        self.bn1 = _BN(planes, dtype)
+        self.conv2 = Conv(planes, planes, 3, 1, dtype)
+        self.bn2 = _BN(planes, dtype)
+        self.downsample = (
+            nn.Sequential(Conv(cin, planes, 1, stride, dtype),
+                          _BN(planes, dtype))
+            if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class ResNetEncoder(nn.Module):
+    """Residual feature extractor: (B, H, W, C_in) -> stage-4 feature map
+    (B, h, w, 8 * width), NHWC at both ends."""
+
+    def __init__(self, in_channels: int,
+                 stage_sizes: Sequence[int] = (2, 2, 2, 2), width: int = 64,
+                 dtype: Optional[torch.dtype] = None,
+                 stem_space_to_depth: bool = False, bn_fused: bool = False,
+                 pool_kernel: str = "xla"):
+        super().__init__()
+        if stem_space_to_depth:
+            raise NotImplementedError(
+                "stem_space_to_depth=True is not ported (ROADMAP.md queue A, "
+                "item 20)")
+        if pool_kernel != "xla":
+            raise NotImplementedError(
+                f"pool_kernel={pool_kernel!r} (the stored-index max-pool "
+                f"kernels) comes with {_SLICE2}")
+        if bn_fused:
+            raise NotImplementedError(
+                f"bn_fused=True (the fused BN-statistics kernels) comes with "
+                f"{_SLICE2}")
+        self.conv1 = StemConv(in_channels, width, dtype)
+        self.bn1 = _BN(width, dtype)
+        planes, cin = width, width
+        for stage, blocks in enumerate(stage_sizes):
+            layer = []
+            for b in range(blocks):
+                stride = 2 if (stage > 0 and b == 0) else 1
+                # BasicBlock nets change width exactly when striding
+                layer.append(BasicBlock(cin, planes, stride, stride != 1,
+                                        dtype))
+                cin = planes
+            self.add_module(f"layer{stage + 1}", nn.Sequential(*layer))
+            planes *= 2
+        self.stage_sizes = tuple(stage_sizes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view: channels_last
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        for stage in range(len(self.stage_sizes)):
+            x = getattr(self, f"layer{stage + 1}")(x)
+        return x.permute(0, 2, 3, 1)
