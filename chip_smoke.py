@@ -5,15 +5,35 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 Phases, each of which raises on failure:
 
 1. device: CUDA is required; prints the card's name and power limit;
-2. build: compiles every CUDA source of the port with nvcc for sm_90a;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shape and at a general one, with its times beside its
-   bound and the library call that computes the same function;
-4. card against CPU: a narrow fp32 VGGSound step, two train steps from the
-   same weights on the card and on the CPU;
-5. main path: the VGGSound jprobas train step at batch 224 (two ResNet18
+2. build: compiles every CUDA source of the port with nvcc for sm_90a, one
+   nvcc per source, all at once;
+3. kernels: the log-STFT kernel against its plain PyTorch version on the
+   card, at the main path's shape and at a ragged one, with its times
+   beside its bound and the library call that computes the same function;
+4. switched towers: the two full-width bf16 towers with
+   ``bn_fused=True, pool_kernel="pallas"``, forward and backward on the
+   main path's preprocessed inputs.  A first pass records the shape of
+   every BN-sums and max-pool call; it and a pass of the default towers
+   are held against the same towers in fp32 (outputs and stem-conv
+   gradients).  Then passes timed in turns against the default towers,
+   and every BN-sums and max-pool kernel must have launched as often as
+   the towers call it;
+5. kernels: the BN-sums and max-pool kernels as in 3, at every shape
+   phase 4 recorded, summed over a pass's calls, and at ragged shapes; two
+   launches must agree bit for bit; the stem's switched BN module against
+   the default BN;
+6. card against CPU: a narrow fp32 VGGSound step, two train steps from the
+   same weights on the card and on the CPU, with the default and with the
+   stored-index max-pool; a narrow encoder with both kernel switches on,
+   forward and backward;
+7. main path: the VGGSound jprobas train step at batch 224 (two ResNet18
    towers, bf16, 309 classes), one warm-up step, timed steps, one eval
-   step; every kernel of the path must have launched.
+   step; every kernel of the path must have launched;
+8. switched main path: the same step with ``pool_kernel="pallas"``, whose
+   stem max-pools are the stored-index kernels.
+
+Each path's launch counts are set to 0 just before it is driven and read
+just after; launches made to compare or time a kernel do not count.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints no
@@ -22,6 +42,8 @@ result.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import statistics
@@ -31,6 +53,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 BATCH, CLASSES = 224, 309
 WARMUP_STEPS, TIMED_STEPS, EVAL_STEPS = 1, 5, 1
@@ -57,6 +80,39 @@ CPU_BUFFER_RTOL, CPU_BUFFER_ATOL = 1e-4, 1e-5
 CPU_EMA_ATOL = 1e-5
 F64_LOSS_RTOL = 1e-6
 F64_TOL = 1e-4
+# BN sums, kernel against plain version: fp32 sums of the same terms in
+# another order (per-thread runs of up to a few hundred rows, then
+# fixed-order trees, against PyTorch's reduction); each channel is held to
+# 1e-5 of the sum of its terms' magnitudes.  The max-pool kernels must
+# equal their plain versions exactly: the max is one of its inputs, and dx
+# is the same fp32 sum in the same order, rounded once.
+SUM_RTOL = 1e-5
+# the narrow switched encoder, card against CPU, fp32 and TF32 off, from
+# seed 0: on the CPU alone its fp32 gradients agree with float64 to 5e-6
+# of each tensor's largest entry and its loss to 3e-7, so no ReLU or
+# max-pool decision sits within fp32 rounding of its threshold
+ENC_SEED, ENC_INPUT = 0, (4, 48, 48, 1)
+ENC_LOSS_RTOL = 1e-4
+ENC_GRAD_TOL = 1e-4
+# the switched towers: timed passes in turns, after one warm-up pass each
+TOWER_TIMED = 3
+# the switched and the default bf16 towers, full width, one pass from the
+# same weights and inputs, each held against the same towers in fp32 (TF32
+# off): outputs and stem-conv weight gradients, each tensor's largest
+# difference in units of its largest entry.  Both bf16 paths round every
+# op's result once, so the switched towers may stray from fp32 at most
+# TOWER_RATIO times as far as the default towers do.  (The two bf16 paths
+# alone part by 2.4e-1 in the stem-conv gradient on the H100: ReLU and
+# max-pool decisions within bf16 rounding of their thresholds flip.)
+TOWER_RATIO = 2.0
+# the switched BN module against the default one at the stem, bf16: both
+# compute y and dx in fp32 from the same sums (to ~1e-6) and round once, so
+# they differ by at most one bf16 ulp of an entry, under 2^-7 of the
+# largest entry; twice that is the limit
+BN_MODULE_TOL = 2.0 ** -6
+# the main path's towers: (batch, H, W, input channels)
+AUDIO_TOWER = (BATCH, 129, 626, 1)
+VISUAL_TOWER = (BATCH * 4, 224, 224, 3)
 
 
 def log(msg: str) -> None:
@@ -188,13 +244,292 @@ def phase_kernels(device):
     return [entry]
 
 
+def _bound(bytes_moved: float, fp32_ops: float):
+    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = fp32_ops / PEAK_FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _check_sums(got, want, magnitude, what: str):
+    """(largest |kernel - plain|, largest |kernel - plain| / sum of the
+    terms' magnitudes) over both sums; raises past SUM_RTOL."""
+    worst, worst_rel = 0.0, 0.0
+    for g, w, mag in zip(got, want, magnitude):
+        err = (g - w).abs()
+        rel = float((err / mag.clamp_min(1e-30)).max())
+        if not rel <= SUM_RTOL:
+            raise AssertionError(f"{what}: kernel and plain sums differ by "
+                                 f"{rel:.3e} of the terms' magnitude")
+        worst, worst_rel = max(worst, float(err.max())), max(worst_rel, rel)
+    return worst, worst_rel
+
+
+def _bn_case(m: int, c: int, dtype, seed: int):
+    """A BN input (mean 0.5, unit spread, as a conv output), a gradient, and
+    the batch statistics the train path would derive from the input."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, c, device="cuda", dtype=dtype, generator=gen).add_(0.5)
+    dy = torch.randn(m, c, device="cuda", dtype=dtype, generator=gen)
+    s, s2 = x.float().sum(0), x.float().square().sum(0)
+    mean = s / m
+    rstd = torch.rsqrt((s2 / m - mean * mean).clamp_min(0) + 1e-5)
+    return x, dy, mean, rstd
+
+
+def _check_bn(x, dy, mean, rstd, what: str):
+    """Both BN-sums kernels against their plain versions, and a second
+    launch against the first; returns each one's (absolute, relative)
+    largest error."""
+    from multimodal_clinical_tpu_torch.ops import cuda_fused_bn as cfb
+    from multimodal_clinical_tpu_torch.ops import fused_bn
+
+    fwd = cfb.launch_channel_sums(x)
+    bwd = cfb.launch_bwd_sums(dy, x, mean, rstd)
+    torch.cuda.synchronize()
+    x32, dy32 = x.float(), dy.float()
+    fwd_err = _check_sums(fwd, fused_bn.channel_sums(x),
+                          (x32.abs().sum(0), x32.square().sum(0)),
+                          f"bn_sums {what}")
+    dy_xhat = dy32 * ((x32 - mean) * rstd)
+    del x32
+    bwd_err = _check_sums(bwd, fused_bn.bwd_sums(dy, x, mean, rstd),
+                          (dy32.abs().sum(0), dy_xhat.abs().sum(0)),
+                          f"bn_bwd_sums {what}")
+    del dy32, dy_xhat
+    again = cfb.launch_channel_sums(x) + cfb.launch_bwd_sums(dy, x, mean, rstd)
+    if not all(torch.equal(a, b) for a, b in zip(fwd + bwd, again)):
+        raise AssertionError(f"BN sums {what}: two launches differ")
+    return fwd_err, bwd_err
+
+
+def _check_pool(x, what: str):
+    """Both max-pool kernels against their plain versions (exactly), and a
+    second launch against the first; returns (y, idx, dy)."""
+    from multimodal_clinical_tpu_torch.ops import cuda_maxpool as cmp
+    from multimodal_clinical_tpu_torch.ops import maxpool
+
+    h, w = x.shape[1:3]
+    y, idx = cmp.launch_pool_fwd(x)
+    torch.cuda.synchronize()
+    want_y, want_idx = maxpool.pool_fwd(x)
+    if not (torch.equal(y, want_y) and torch.equal(idx, want_idx)):
+        raise AssertionError(f"maxpool_fwd {what}: kernel and plain differ")
+    del want_y, want_idx
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dy = torch.randn(y.shape, device="cuda", dtype=x.dtype, generator=gen)
+    dx = cmp.launch_pool_bwd(dy, idx, h, w)
+    torch.cuda.synchronize()
+    if not torch.equal(dx, maxpool.pool_bwd(dy, idx, h, w)):
+        raise AssertionError(f"maxpool_bwd {what}: kernel and plain differ")
+    y2, idx2 = cmp.launch_pool_fwd(x)
+    if not (torch.equal(y, y2) and torch.equal(idx, idx2) and torch.equal(
+            dx, cmp.launch_pool_bwd(dy, idx, h, w))):
+        raise AssertionError(f"max-pool {what}: two launches differ")
+    return y, idx, dy
+
+
+def _check_bn_module(stem, device):
+    """The switched BN module (``FusedBatchNorm``: the sums kernels and the
+    eager apply and dx) against the default one (PyTorch's batch norm) in a
+    train-mode forward and backward, from the same weights, on a bf16
+    channels_last map of NHWC shape ``stem``: y and dx to BN_MODULE_TOL of
+    the largest entry, the weight and bias gradients to SUM_RTOL of their
+    terms' magnitude.  Returns the errors of y and dx, and the largest
+    absolute and relative errors of the parameter gradients."""
+    from multimodal_clinical_tpu_torch.models.common import FusedBatchNorm
+    from multimodal_clinical_tpu_torch.models.resnet import _BN
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, noise = (torch.randn(stem, device=device, dtype=torch.bfloat16,
+                            generator=gen).permute(0, 3, 1, 2)
+                for _ in range(2))
+    x = x.add(0.5)  # a conv output's offset mean, still channels_last
+    # a gradient with a mean and a part along x, as in a net: the terms of
+    # dx that take them out are then as large as g * dy
+    dy = noise.add(x, alpha=0.5)
+    c = stem[-1]
+    fused = FusedBatchNorm(c, torch.bfloat16).to(device)
+    default = _BN(c, torch.bfloat16).to(device)
+    default.load_state_dict(fused.state_dict())
+    got = {}
+    for name, module in (("default", default), ("fused", fused)):
+        xi = x.detach().requires_grad_(True)
+        y = module(xi)
+        y.backward(dy)
+        got[name] = (y.detach(), xi.grad, module.weight.grad,
+                     module.bias.grad)
+    del xi, y
+    errs = [_scaled_err(a.float(), b.float())
+            for a, b in zip(got["fused"][:2], got["default"][:2])]
+    if not max(errs) <= BN_MODULE_TOL:
+        raise AssertionError(f"BN module {stem}: y and dx differ from the "
+                             f"default BN's by {errs} of the largest entry")
+    x32, dy32 = x.float(), dy.float()
+    mean = x32.mean((0, 2, 3), keepdim=True)
+    rstd = torch.rsqrt(x32.var((0, 2, 3), unbiased=False, keepdim=True)
+                       + fused.eps)
+    magnitude = ((dy32 * (x32 - mean) * rstd).abs().sum((0, 2, 3)),
+                 dy32.abs().sum((0, 2, 3)))
+    del x32, dy32
+    errs += _check_sums(got["fused"][2:], got["default"][2:], magnitude,
+                        f"BN module {stem} weight and bias gradients")
+    return errs
+
+
+def phase_switched_kernels(device, calls, launches):
+    """The BN-sums and stored-index max-pool kernels: each against its plain
+    version at every shape that one pass of the switched towers gave it
+    (``calls``, recorded in that pass; bf16), and at ragged shapes (bf16
+    and fp32); times per call and summed over the pass's calls, beside the
+    bound and the library call.  ``launches`` are the towers' BN-sums
+    launch counts."""
+    from multimodal_clinical_tpu_torch.ops import cuda_fused_bn as cfb
+    from multimodal_clinical_tpu_torch.ops import cuda_maxpool as cmp
+    from multimodal_clinical_tpu_torch.ops import fused_bn, maxpool
+
+    names = ("bn_sums", "bn_bwd_sums", "maxpool_fwd", "maxpool_bwd")
+    totals = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
+                      ops=0.0, calls=0, err=0.0, rel=0.0) for n in names}
+
+    def add(name, count, ms, plain_ms, library_ms, bytes_moved, ops, err):
+        t = totals[name]
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", library_ms), ("bytes", bytes_moved),
+                       ("ops", ops)):
+            t[key] += count * v
+        t["calls"] += count
+        t["err"] = max(t["err"], err[0])
+        t["rel"] = max(t["rel"], err[1])
+
+    # ragged shapes first: M not a multiple of a block's rows, C not a
+    # divisor of the block's threads, fp32 and bf16
+    for m, c, dtype in ((1_000_003, 64, torch.bfloat16),
+                        (1003, 128, torch.float32),
+                        (513, 24, torch.float32)):
+        errs = _check_bn(*_bn_case(m, c, dtype, seed=m), f"({m}, {c}) {dtype}")
+        log(f"[kernels] BN sums ({m}, {c}) {dtype}: max |err| forward "
+            f"{errs[0][0]:.3e} ({errs[0][1]:.2e} of the terms' magnitude), "
+            f"backward {errs[1][0]:.3e} ({errs[1][1]:.2e})")
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        x = torch.randn(3, 9, 11, 64, device="cuda", generator=gen)
+        x = (x * 2).round().div(2).clamp_min(0).to(dtype)  # tie plateaus
+        _check_pool(x, f"(3, 9, 11, 64) {dtype}")
+        log(f"[kernels] max-pool (3, 9, 11, 64) {dtype} with tie plateaus: "
+            f"equal to the plain version")
+
+    bn_calls = collections.Counter(calls["bn_sums"])
+    for (m, c), count in sorted(bn_calls.items(), key=lambda kv: -kv[0][0]):
+        x, dy, mean, rstd = _bn_case(m, c, torch.bfloat16, seed=m)
+        errs = _check_bn(x, dy, mean, rstd, f"({m}, {c})")
+        weight = torch.ones(c, device=device)
+        fwd = (cuda_ms(lambda: cfb.launch_channel_sums(x)),
+               cuda_ms(lambda: fused_bn.channel_sums(x)),
+               cuda_ms(lambda: torch.batch_norm_stats(x, 1e-5)))
+        bwd = (cuda_ms(lambda: cfb.launch_bwd_sums(dy, x, mean, rstd)),
+               cuda_ms(lambda: fused_bn.bwd_sums(dy, x, mean, rstd)),
+               cuda_ms(lambda: torch.batch_norm_backward_reduce(
+                   dy, x, mean, rstd, weight, True, True, True)))
+        n = m * c
+        add("bn_sums", count, *fwd, 2 * n + 8 * c, 3 * n, errs[0])
+        add("bn_bwd_sums", count, *bwd, 4 * n + 16 * c, 6 * n, errs[1])
+        log(f"[kernels] BN sums ({m}, {c}) bf16, {count} per pass: forward "
+            f"{fwd[0]:.4f} ms (plain {fwd[1]:.4f}, batch_norm_stats "
+            f"{fwd[2]:.4f}, bound {_bound(2 * n, 3 * n)[0]:.4f}), backward "
+            f"{bwd[0]:.4f} ms (plain {bwd[1]:.4f}, batch_norm_backward_reduce "
+            f"{bwd[2]:.4f}, bound {_bound(4 * n, 6 * n)[0]:.4f}); max |err| "
+            f"{errs[0][0]:.3e} / {errs[1][0]:.3e}, of the terms' magnitude "
+            f"{errs[0][1]:.2e} / {errs[1][1]:.2e}")
+        del x, dy
+    pool_calls = collections.Counter(calls["maxpool_fwd"])
+    for stem, count in sorted(pool_calls.items(), key=lambda kv: -kv[0][0]):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        # a post-ReLU stem map: half its entries are tied at zero
+        x = torch.randn(stem, device="cuda", dtype=torch.bfloat16,
+                        generator=gen).clamp_min_(0)
+        y, idx, dy = _check_pool(x, str(stem))
+        h, w = stem[1:3]
+        x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        _, lib_idx = F.max_pool2d(x_nchw, 3, 2, 1, return_indices=True)
+        fwd = (cuda_ms(lambda: cmp.launch_pool_fwd(x)),
+               cuda_ms(lambda: maxpool.pool_fwd(x)),
+               cuda_ms(lambda: F.max_pool2d(x_nchw, 3, 2, 1,
+                                            return_indices=True)))
+        bwd = (cuda_ms(lambda: cmp.launch_pool_bwd(dy, idx, h, w)),
+               cuda_ms(lambda: maxpool.pool_bwd(dy, idx, h, w)),
+               cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                   dy_nchw, x_nchw, [3, 3], [2, 2], [1, 1], [1, 1], False,
+                   lib_idx)))
+        n_in, n_out = x.numel(), y.numel()
+        # bf16 in, bf16 y and uint8 index out; 8 compares per output
+        add("maxpool_fwd", count, *fwd, 2 * n_in + 3 * n_out, 8 * n_out,
+            (0.0, 0.0))
+        # bf16 dy and uint8 index in, bf16 dx out; an add per routed dy
+        add("maxpool_bwd", count, *bwd, 3 * n_out + 2 * n_in, n_out,
+            (0.0, 0.0))
+        log(f"[kernels] max-pool {stem} bf16 (post-ReLU, ties at 0), {count} "
+            f"per pass: forward "
+            f"{fwd[0]:.4f} ms (plain {fwd[1]:.4f}, max_pool2d with indices "
+            f"{fwd[2]:.4f}, bound "
+            f"{_bound(2 * n_in + 3 * n_out, 8 * n_out)[0]:.4f}), backward "
+            f"{bwd[0]:.4f} ms (plain {bwd[1]:.4f}, "
+            f"max_pool2d_with_indices_backward {bwd[2]:.4f}, bound "
+            f"{_bound(3 * n_out + 2 * n_in, n_out)[0]:.4f}); equal to plain")
+        del x, y, idx, dy, x_nchw, dy_nchw, lib_idx
+    # the composed BN op at the largest map: the stem's (its BN input is
+    # the map its max-pool takes)
+    stem = max(pool_calls, key=math.prod)
+    errs = _check_bn_module(stem, device)
+    log(f"[kernels] BN module {stem} bf16, bn_fused against the default BN: "
+        f"y within {errs[0]:.3e} and dx within {errs[1]:.3e} of the largest "
+        f"entry; weight and bias gradients within {errs[3]:.2e} of their "
+        f"terms' magnitude")
+    torch.cuda.empty_cache()
+
+    sources = {
+        "bn_sums": ("bn_sums.cu", "fused_bn.py:104 _channel_sums_pallas"),
+        "bn_bwd_sums": ("bn_sums.cu", "fused_bn.py:155 _bwd_sums_pallas"),
+        "maxpool_fwd": ("maxpool.cu", "maxpool_pallas.py:128 _pool_fwd_pallas"),
+        "maxpool_bwd": ("maxpool.cu", "maxpool_pallas.py:219 _pool_bwd_pallas"),
+    }
+    entries = []
+    for name in names:
+        t = totals[name]
+        bound_ms, bound_by = _bound(t["bytes"], t["ops"])
+        src, replaces = sources[name]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"multimodal_clinical_tpu_torch/csrc/{src}",
+            "replaces": f"multimodal_clinical_tpu/ops/{replaces}",
+            # the towers' BN launches; the pool's come from the main path
+            "launches": launches.get(name),
+            "max_abs_err": t["err"],
+            # the same, over the sum of the terms' magnitudes (BN sums)
+            "max_rel_err": t["rel"],
+            # calls recorded in one pass of the switched towers (a train
+            # step's); every time is the sum over them
+            "calls_per_step": t["calls"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": t["library_ms"],
+        })
+        log(f"[kernels] {name}, {t['calls']} calls per towers pass: "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return entries
+
+
 def _scaled_err(got, want):
     """Largest difference, in units of ``want``'s largest entry."""
     return float((got - want).abs().max()) / max(float(want.abs().max()),
                                                  1e-30)
 
 
-def _narrow_step(dev, dtype, preprocess=None):
+def _narrow_step(dev, dtype, preprocess=None, pool_kernel="xla"):
     """Two train steps of the narrow fixture on ``dev``: losses, the
     initial and final state_dict, momentum buffers and EMA, on the CPU."""
     from multimodal_clinical_tpu_torch.benchmarks.vggsound_fixture import (
@@ -202,8 +537,9 @@ def _narrow_step(dev, dtype, preprocess=None):
     )
 
     step, state, batch, spec = build_vggsound_bench(
-        batch=2, num_classes=5, device=dev, frames_bf16=False, num_frames=2,
-        image_size=32, samples=4000, width=8, dtype=None)
+        batch=2, num_classes=5, pool_kernel=pool_kernel, device=dev,
+        frames_bf16=False, num_frames=2, image_size=32, samples=4000,
+        width=8, dtype=None)
     state.model.to(dtype)
     if preprocess is not None:
         spec.device_preprocess = preprocess
@@ -220,6 +556,55 @@ def _narrow_step(dev, dtype, preprocess=None):
         momentum={k: cpu(state.optimizer.state[p]["momentum_buffer"])
                   for k, p in named.items()},
         ema=cpu(state.ema))
+
+
+def _compare_fp32_steps(card, host, what: str) -> None:
+    """Losses, BN buffers and EMA of two fp32 narrow runs: the quantities
+    that are continuous in the inputs."""
+    np.testing.assert_allclose(card["losses"], host["losses"],
+                               rtol=CPU_LOSS_RTOL)
+    worst = 0.0
+    for key, want in host["final"].items():
+        assert torch.equal(card["init"][key], host["init"][key]), key
+        if "running" in key:
+            np.testing.assert_allclose(card["final"][key].numpy(),
+                                       want.numpy(), rtol=CPU_BUFFER_RTOL,
+                                       atol=CPU_BUFFER_ATOL, err_msg=key)
+            worst = max(worst, _scaled_err(card["final"][key], want))
+    np.testing.assert_allclose(card["ema"].numpy(), host["ema"].numpy(),
+                               rtol=0, atol=CPU_EMA_ATOL)
+    log(f"[card-vs-cpu] fp32 {what}: losses card {card['losses']} cpu "
+        f"{host['losses']}; BN buffers within {worst:.2e}")
+
+
+def _narrow_encoder(dev):
+    """One train-mode pass of a narrow ResNet18 with both kernel switches on
+    ``dev``, fp32: loss, gradients (the input's too), running buffers and
+    the kernels' launches, on the CPU."""
+    from multimodal_clinical_tpu_torch.models.common import init_weights
+    from multimodal_clinical_tpu_torch.models.resnet import ResNetEncoder
+
+    enc = ResNetEncoder(1, width=8, bn_fused=True, pool_kernel="pallas")
+    init_weights(enc, torch.Generator().manual_seed(ENC_SEED))
+    enc = enc.to(dev, memory_format=torch.channels_last)
+    rng = np.random.default_rng(ENC_SEED)
+    x = torch.from_numpy(rng.normal(size=ENC_INPUT).astype(np.float32)).to(
+        dev).requires_grad_(True)
+    launchers = _switch_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    out = enc(x)
+    w = torch.from_numpy(rng.normal(size=tuple(out.shape)).astype(
+        np.float32)).to(dev)
+    loss = (out * w).sum()
+    loss.backward()
+    cpu = lambda t: t.detach().cpu().clone()
+    grads = {k: cpu(p.grad) for k, p in enc.named_parameters()}
+    grads["input"] = cpu(x.grad)
+    return dict(loss=float(loss.detach()), grads=grads,
+                buffers={k: cpu(v) for k, v in enc.state_dict().items()
+                         if "running" in k},
+                launches={n: fn.launches for n, fn in launchers.items()})
 
 
 def phase_card_against_cpu(device):
@@ -241,24 +626,16 @@ def phase_card_against_cpu(device):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the CPU side runs on 2 threads: PyTorch's CPU convolution backward
+    # crashed at some small channels_last shapes on 4 threads
+    torch.set_num_threads(2)
     cpu = torch.device("cpu")
-    card, host = _narrow_step(device, torch.float32), _narrow_step(
-        cpu, torch.float32)
-    np.testing.assert_allclose(card["losses"], host["losses"],
-                               rtol=CPU_LOSS_RTOL)
-    worst = {"buffer": 0.0, "update": 0.0, "momentum": 0.0}
-    for key, want in host["final"].items():
-        assert torch.equal(card["init"][key], host["init"][key]), key
-        if "running" in key:
-            np.testing.assert_allclose(card["final"][key].numpy(),
-                                       want.numpy(), rtol=CPU_BUFFER_RTOL,
-                                       atol=CPU_BUFFER_ATOL, err_msg=key)
-            worst["buffer"] = max(worst["buffer"],
-                                  _scaled_err(card["final"][key], want))
-    np.testing.assert_allclose(card["ema"].numpy(), host["ema"].numpy(),
-                               rtol=0, atol=CPU_EMA_ATOL)
-    log(f"[card-vs-cpu] fp32 losses card {card['losses']} cpu "
-        f"{host['losses']}; BN buffers within {worst['buffer']:.2e}")
+    for pool_kernel in ("xla", "pallas"):
+        _compare_fp32_steps(_narrow_step(device, torch.float32,
+                                         pool_kernel=pool_kernel),
+                            _narrow_step(cpu, torch.float32,
+                                         pool_kernel=pool_kernel),
+                            f"pool_kernel={pool_kernel!r}")
 
     def shared(batch, generator, train):
         out = vggsound.device_preprocess(
@@ -267,6 +644,7 @@ def phase_card_against_cpu(device):
         return {k: (v.double() if k in ("x1", "x2") else v).to(dev)
                 for k, v in out.items()}
 
+    worst = {"update": 0.0, "momentum": 0.0}
     card, host = (_narrow_step(device, torch.float64, shared),
                   _narrow_step(cpu, torch.float64, shared))
     np.testing.assert_allclose(card["losses"], host["losses"],
@@ -290,22 +668,110 @@ def phase_card_against_cpu(device):
         f"{host['losses']}; updates within {worst['update']:.2e}, momentum "
         f"within {worst['momentum']:.2e} of each tensor's largest entry")
 
+    card, host = _narrow_encoder(device), _narrow_encoder(cpu)
+    # one tower: 20 BNs and one stem max-pool, each forward and backward
+    want = {"bn_sums": 20, "bn_bwd_sums": 20, "maxpool_fwd": 1,
+            "maxpool_bwd": 1}
+    if card["launches"] != want or any(host["launches"].values()):
+        raise AssertionError(f"narrow encoder launches: card "
+                             f"{card['launches']}, CPU {host['launches']}")
+    np.testing.assert_allclose(card["loss"], host["loss"],
+                               rtol=ENC_LOSS_RTOL)
+    for key, ref in host["buffers"].items():
+        np.testing.assert_allclose(card["buffers"][key].numpy(), ref.numpy(),
+                                   rtol=CPU_BUFFER_RTOL,
+                                   atol=CPU_BUFFER_ATOL, err_msg=key)
+    grad_err = 0.0
+    for key, ref in host["grads"].items():
+        err = _scaled_err(card["grads"][key], ref)
+        if not err <= ENC_GRAD_TOL:
+            raise AssertionError(f"narrow encoder {key} gradient: card and "
+                                 f"CPU differ by {err:.3e} of its largest "
+                                 f"entry")
+        grad_err = max(grad_err, err)
+    buffer_err = max(_scaled_err(card["buffers"][k], v)
+                     for k, v in host["buffers"].items())
+    log(f"[card-vs-cpu] fp32 narrow encoder (bn_fused, pool_kernel="
+        f"'pallas'), input {ENC_INPUT}: loss card {card['loss']:.7g} cpu "
+        f"{host['loss']:.7g}; gradients within {grad_err:.2e}, running "
+        f"buffers (unbiased variance) within {buffer_err:.2e} of each "
+        f"tensor's largest entry; card launches {card['launches']}")
 
-def phase_main_path(device, card: str, kernels):
+
+def _switch_launchers():
+    """The wrappers of the kernels behind ``bn_fused`` and ``pool_kernel``."""
+    from multimodal_clinical_tpu_torch.ops import cuda_fused_bn as cfb
+    from multimodal_clinical_tpu_torch.ops import cuda_maxpool as cmp
+
+    return {"bn_sums": cfb.launch_channel_sums,
+            "bn_bwd_sums": cfb.launch_bwd_sums,
+            "maxpool_fwd": cmp.launch_pool_fwd,
+            "maxpool_bwd": cmp.launch_pool_bwd}
+
+
+@contextlib.contextmanager
+def _recording_calls():
+    """While open, every call of a switch's wrapper appends the shape it
+    was given to ``calls[name]``: (M, C) of the BN sums' (..., C) input,
+    the NHWC input map (B, H, W, C) of the max-pool, forward and backward.
+    The wrappers are wrapped in their modules, where the ops look them up,
+    and restored on exit."""
+    from multimodal_clinical_tpu_torch.ops import cuda_fused_bn as cfb
+    from multimodal_clinical_tpu_torch.ops import cuda_maxpool as cmp
+
+    def bn_shape(x):
+        return x.numel() // x.shape[-1], x.shape[-1]
+
+    shape_of = {
+        "bn_sums": (cfb, "launch_channel_sums", bn_shape),
+        "bn_bwd_sums": (cfb, "launch_bwd_sums",
+                        lambda dy, x, mean, rstd: bn_shape(x)),
+        "maxpool_fwd": (cmp, "launch_pool_fwd", lambda x: tuple(x.shape)),
+        "maxpool_bwd": (cmp, "launch_pool_bwd", lambda dy, idx, h, w: (
+            dy.shape[0], h, w, dy.shape[3])),
+    }
+    calls = {name: [] for name in shape_of}
+
+    def recording(name, fn, shape):
+        def wrapper(*args):
+            calls[name].append(shape(*args))
+            return fn(*args)
+        # the wrapped function counts its launch on the name its module
+        # binds, which is this wrapper while recording
+        wrapper.launches = 0
+        return wrapper
+
+    originals = {name: getattr(module, attr)
+                 for name, (module, attr, _) in shape_of.items()}
+    try:
+        for name, (module, attr, shape) in shape_of.items():
+            setattr(module, attr, recording(name, originals[name], shape))
+        yield calls
+    finally:
+        for name, (module, attr, _) in shape_of.items():
+            setattr(module, attr, originals[name])
+
+
+def _drive_vggsound(device, card: str, pool_kernel: str, expected):
+    """Warm-up, timed and eval steps of the VGGSound fixture at batch 224;
+    raises unless every kernel in ``expected`` launched exactly so often.
+    Returns (median step ms, launches)."""
     from multimodal_clinical_tpu_torch.benchmarks.vggsound_fixture import (
         build_vggsound_bench,
     )
     from multimodal_clinical_tpu_torch.engine.steps import make_eval_step
     from multimodal_clinical_tpu_torch.ops import cuda_spectrogram as cs
 
-    launchers = {"log_spectrogram": cs.launch_log_spectrogram}
+    launchers = {"log_spectrogram": cs.launch_log_spectrogram,
+                 **_switch_launchers()}
+    tag = f"[main pool_kernel={pool_kernel!r}]"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     train_step, state, batch, spec = build_vggsound_bench(
-        BATCH, CLASSES, device=device)
+        BATCH, CLASSES, pool_kernel=pool_kernel, device=device)
     eval_step = make_eval_step(spec)
     torch.cuda.synchronize()
-    log(f"[main] fixture built in {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} fixture built in {time.perf_counter() - t0:.1f} s")
     for launcher in launchers.values():
         launcher.launches = 0
     losses, step_ms = [], []
@@ -317,7 +783,7 @@ def phase_main_path(device, card: str, kernels):
         losses.append(float(metrics["train_loss"]))
         if i >= WARMUP_STEPS:
             step_ms.append(elapsed)
-        log(f"[main] step {i} {'warm-up' if i < WARMUP_STEPS else 'timed'}: "
+        log(f"{tag} step {i} {'warm-up' if i < WARMUP_STEPS else 'timed'}: "
             f"{elapsed:.1f} ms, loss {losses[-1]:.5f}")
     for _ in range(EVAL_STEPS):
         out = eval_step(state, batch)
@@ -330,21 +796,203 @@ def phase_main_path(device, card: str, kernels):
             torch.isfinite(stack).all()) or not math.isfinite(
                 float(out["loss"])):
         raise AssertionError("eval step output is not finite or misshaped")
-    expected = WARMUP_STEPS + TIMED_STEPS + EVAL_STEPS
     for name, count in launches.items():
-        if count != expected:
+        if count != expected.get(name, 0):
             raise AssertionError(
-                f"{name} launched {count} times in {expected} steps")
-    for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+                f"{tag} {name} launched {count} times, expected "
+                f"{expected.get(name, 0)}: {launches}")
     median = statistics.median(step_ms)
-    log(f"[main] {card}: train step median {median:.2f} ms, mean "
+    log(f"{tag} {card}: train step median {median:.2f} ms, mean "
         f"{statistics.mean(step_ms):.2f} ms over {TIMED_STEPS} steps "
         f"(each {', '.join(f'{m:.2f}' for m in step_ms)}); "
         f"{BATCH / median * 1e3:.1f} samples/s at batch {BATCH}; eval loss "
         f"{float(out['loss']):.5f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"launches {launches}")
+    del train_step, state, batch, spec, eval_step, out
+    torch.cuda.empty_cache()
+    return median, launches
+
+
+def phase_main_path(device, card: str, kernels):
+    train_steps = WARMUP_STEPS + TIMED_STEPS
+    default_ms, launches = _drive_vggsound(
+        device, card, "xla",
+        {"log_spectrogram": train_steps + EVAL_STEPS})
+    # the stem max-pools through the stored-index kernels: two per train
+    # step (one per tower), none in eval (the op's no-grad primal)
+    switched_ms, switched = _drive_vggsound(
+        device, card, "pallas",
+        {"log_spectrogram": train_steps + EVAL_STEPS,
+         "maxpool_fwd": 2 * train_steps, "maxpool_bwd": 2 * train_steps})
+    log(f"[main] {card}: train step median, default {default_ms:.2f} ms, "
+        f"pool_kernel='pallas' {switched_ms:.2f} ms")
+    for entry in kernels:
+        if entry["name"] == "log_spectrogram":
+            entry["launches"] = launches["log_spectrogram"]
+        elif entry["name"].startswith("maxpool"):
+            entry["launches"] = switched[entry["name"]]
+
+
+def phase_switched_towers(device, card: str):
+    """The two full-width bf16 towers with ``bn_fused=True,
+    pool_kernel="pallas"`` against the same towers with the switches off,
+    from the same weights, on the main path's preprocessed inputs.  One
+    warm-up pass of each (forward and backward of both towers): the
+    switched one records the shape of every kernel call.  The outputs and
+    stem-conv gradients of both are held against the same towers in fp32
+    (TOWER_RATIO).  Then timed passes in turns off, on, on, off, ...  Each
+    switched pass must launch 40 BN sums forward, 40 backward, and 2
+    max-pools each way.  Returns (the warm-up pass's recorded calls, the
+    timed passes' launches)."""
+    from multimodal_clinical_tpu_torch.benchmarks import vggsound
+    from multimodal_clinical_tpu_torch.engine.state import step_generator
+    from multimodal_clinical_tpu_torch.models.common import init_weights
+    from multimodal_clinical_tpu_torch.models.resnet import ResNetEncoder
+
+    gen = np.random.default_rng(0)
+    wave = torch.from_numpy(gen.normal(scale=0.1, size=(BATCH, 80000)).astype(
+        np.float32)).to(device)
+    frames = torch.from_numpy(gen.normal(size=(BATCH, 4, 224, 224, 3)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    with torch.no_grad():
+        pre = vggsound.device_preprocess({"x1_waveform": wave, "x2": frames},
+                                         step_generator(0, 0), True)
+    inputs = (pre["x1"], pre["x2"].flatten(0, 1))
+    del wave, frames, pre
+    if tuple(inputs[0].shape) != AUDIO_TOWER or tuple(
+            inputs[1].shape) != VISUAL_TOWER:
+        raise AssertionError(f"tower inputs {[tuple(x.shape) for x in inputs]}")
+
+    def towers(dtype=torch.bfloat16, **switches):
+        pair = []
+        for seed, cin in enumerate((1, 3)):
+            enc = ResNetEncoder(cin, dtype=dtype, **switches)
+            init_weights(enc, torch.Generator().manual_seed(seed))
+            pair.append(enc.to(device, memory_format=torch.channels_last))
+        return pair
+
+    configs = {"off": towers(), "on": towers(bn_fused=True,
+                                            pool_kernel="pallas")}
+    cot_gen = torch.Generator(device="cuda").manual_seed(4)
+    cotangents = []
+
+    def one_pass(pair):
+        """Outputs and stem-conv weight gradients of both towers."""
+        outs, grads = [], []
+        for i, (enc, x) in enumerate(zip(pair, inputs)):
+            enc.zero_grad(set_to_none=True)
+            out = enc(x)
+            if len(cotangents) < 2:
+                cotangents.append(torch.randn(
+                    out.shape, device=device, dtype=out.dtype,
+                    generator=cot_gen))
+            out.backward(cotangents[i].to(out.dtype))
+            outs.append(out.detach())
+            grads.append(enc.conv1.weight.grad)
+        return outs, grads
+
+    with _recording_calls() as calls:
+        on = one_pass(configs["on"])
+    off = one_pass(configs["off"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reference = one_pass(towers(torch.float32))
+    torch.cuda.synchronize()
+    for fwd, bwd in (("bn_sums", "bn_bwd_sums"),
+                     ("maxpool_fwd", "maxpool_bwd")):
+        if collections.Counter(calls[fwd]) != collections.Counter(calls[bwd]):
+            raise AssertionError(f"switched towers: {fwd} saw {calls[fwd]}, "
+                                 f"{bwd} saw {calls[bwd]}")
+    diffs = {}
+    for k, what in enumerate(("outputs", "stem-conv gradients")):
+        for a, b in zip(on[k] + off[k], reference[k] * 2):
+            if not (a.shape == b.shape and torch.isfinite(a).all()):
+                raise AssertionError(f"switched towers: {what} not finite or "
+                                     f"misshaped")
+
+        def err(got, want):
+            return max(_scaled_err(a.float(), b.float())
+                       for a, b in zip(got, want))
+
+        d = diffs[what] = {"switched": err(on[k], reference[k]),
+                           "default": err(off[k], reference[k]),
+                           "apart": err(on[k], off[k])}
+        if not d["switched"] <= TOWER_RATIO * d["default"]:
+            raise AssertionError(
+                f"switched towers: {what} differ from the fp32 towers' by "
+                f"{d['switched']:.3e} of the largest entry, the default "
+                f"towers' by {d['default']:.3e} (limit {TOWER_RATIO} times)")
+    del on, off, reference
+
+    launchers = _switch_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    times = {"off": [], "on": []}
+    peak = {"off": 0.0, "on": 0.0}
+    order = ["off", "on", "on", "off"] * ((TOWER_TIMED + 1) // 2)
+    for name in order[:2 * TOWER_TIMED]:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one_pass(configs[name])
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t) * 1e3)
+        peak[name] = max(peak[name],
+                         torch.cuda.max_memory_allocated() / 2**30)
+    launches = {n: fn.launches for n, fn in launchers.items()}
+    profiles = {name: _profile_pass(one_pass, pair)
+                for name, pair in configs.items()}
+    per_pass = {"bn_sums": 40, "bn_bwd_sums": 40, "maxpool_fwd": 2,
+                "maxpool_bwd": 2}
+    recorded = {n: len(c) for n, c in calls.items()}
+    if launches != {n: TOWER_TIMED * c for n, c in per_pass.items()} or (
+            recorded != per_pass):
+        raise AssertionError(f"switched towers: launches {launches} in "
+                             f"{TOWER_TIMED} passes and {recorded} calls in "
+                             f"the warm-up pass, expected {per_pass} per "
+                             f"pass")
+    med = {n: statistics.median(v) for n, v in times.items()}
+    log(f"[towers] {card}: audio {AUDIO_TOWER} + visual {VISUAL_TOWER} "
+        f"bf16, forward and backward: switches off median {med['off']:.2f} ms "
+        f"(each {', '.join(f'{m:.2f}' for m in times['off'])}), peak "
+        f"{peak['off']:.2f} GiB; bn_fused + pool_kernel='pallas' median "
+        f"{med['on']:.2f} ms (each {', '.join(f'{m:.2f}' for m in times['on'])}"
+        f"), peak {peak['on']:.2f} GiB; launches in {TOWER_TIMED} switched "
+        f"passes {launches}")
+    for what, d in diffs.items():
+        log(f"[towers] {what}, in units of the fp32 towers' largest entry: "
+            f"switched towers {d['switched']:.3e} from them, default towers "
+            f"{d['default']:.3e} (ratio "
+            f"{d['switched'] / max(d['default'], 1e-30):.3f}); "
+            f"switched and default {d['apart']:.3e} apart")
+    for name, (families, top) in profiles.items():
+        log(f"[towers] traced pass, switches {name}, device ms by family: "
+            + ", ".join(f"{fam} {us / 1e3:.3f}" for fam, us in sorted(
+                families.items(), key=lambda kv: -kv[1])))
+        for us, kernel in top:
+            log(f"[towers]   {us / 1e3:9.3f} ms  {kernel[:110]}")
+    del configs, inputs, cotangents
+    torch.cuda.empty_cache()
+    return calls, launches
+
+
+def _profile_pass(one_pass, pair, top: int = 12):
+    """One pass of both towers under ``torch.profiler``: device time by
+    kernel family, and the ``top`` kernels, in microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_clinical_tpu_torch.benchmarks.profile_vggsound import (
+        family_times, kernel_times,
+    )
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_pass(pair)
+        torch.cuda.synchronize()
+    kernels = kernel_times(prof)
+    return family_times(kernels), sorted(
+        ((us, name) for name, us in kernels.items()), reverse=True)[:top]
 
 
 def main() -> int:
@@ -359,8 +1007,13 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
     phase_build()
     kernels = phase_kernels(device)
+    kernels += phase_switched_kernels(device,
+                                      *phase_switched_towers(device, card))
     phase_card_against_cpu(device)
     phase_main_path(device, card, kernels)
+    missing = [e["name"] for e in kernels if not e["launches"]]
+    if missing:
+        raise AssertionError(f"kernels not launched on their path: {missing}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,9 @@ WARMUP_STEPS, TRACED_STEPS, TOP = 2, 3, 15
 # kernel-name fragments -> family, first match wins
 FAMILIES = (
     ("log_spectrogram", "log-spectrogram kernel"),
+    ("sums_partial", "BN-sums kernels"), ("sums_finalize", "BN-sums kernels"),
+    ("pool_fwd_kernel", "max-pool kernels"),
+    ("pool_bwd_kernel", "max-pool kernels"),
     ("conv", "convolution"), ("xmma", "convolution"), ("fprop", "convolution"),
     ("dgrad", "convolution"), ("wgrad", "convolution"),
     ("implicit", "convolution"),
@@ -45,6 +48,22 @@ def family(name: str) -> str:
     return "other"
 
 
+def kernel_times(prof) -> dict:
+    """Device microseconds by kernel name in a finished ``profile``."""
+    kernels = defaultdict(float)
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.key] += evt.self_device_time_total
+    return kernels
+
+
+def family_times(kernels: dict) -> dict:
+    families = defaultdict(float)
+    for name, us in kernels.items():
+        families[family(name)] += us
+    return families
+
+
 def main() -> None:
     train_step, state, batch, _ = build_vggsound_bench()
     batch_size = batch["label"].shape[0]
@@ -59,10 +78,7 @@ def main() -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     float(metrics["train_loss"])
-    kernels = defaultdict(float)   # device us by kernel name
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[evt.key] += evt.self_device_time_total
+    kernels = kernel_times(prof)
     busy_ms = sum(kernels.values()) / 1e3
     if not 0 < busy_ms <= wall_ms:
         raise RuntimeError(f"device busy {busy_ms:.3f} ms in {wall_ms:.3f} ms "
@@ -71,9 +87,7 @@ def main() -> None:
           f"{TRACED_STEPS} traced steps: {wall_ms / TRACED_STEPS:.2f} ms per "
           f"step (wall), device busy {busy_ms / TRACED_STEPS:.2f} ms per "
           f"step, idle share {1 - busy_ms / wall_ms:.3f}")
-    families = defaultdict(float)
-    for name, us in kernels.items():
-        families[family(name)] += us
+    families = family_times(kernels)
     for fam, us in sorted(families.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {fam:24s} {us / 1e3 / TRACED_STEPS:9.3f} ms/step "
               f"{us / 1e3 / busy_ms:7.1%}")

@@ -25,7 +25,8 @@ from .vggsound import device_preprocess
 
 
 def build_vggsound_bench(batch: int = 224, num_classes: int = 309, *,
-                         device="cuda", frames_bf16: bool = True,
+                         pool_kernel: str = "xla", device="cuda",
+                         frames_bf16: bool = True,
                          num_frames: int = 4, image_size: int = 224,
                          samples: int = 80000, width: int = 64,
                          dtype: Optional[torch.dtype] = torch.bfloat16):
@@ -33,7 +34,8 @@ def build_vggsound_bench(batch: int = 224, num_classes: int = 309, *,
     reference geometry (``make_eval_step(spec)`` evaluates it).  The keyword
     sizes default to the reference geometry; the tests and the card-against-
     CPU check shrink them and compute in fp32.  ``frames_bf16`` mirrors the
-    production loader's transfer cast."""
+    production loader's transfer cast; ``pool_kernel="pallas"`` is the
+    towers' stored-index max-pool (see ``models/resnet.py``)."""
     device = resolve_device(device)
     rng = np.random.default_rng(0)
     wave = rng.normal(scale=0.1, size=(batch, samples)).astype(np.float32)
@@ -44,7 +46,8 @@ def build_vggsound_bench(batch: int = 224, num_classes: int = 309, *,
                            learning_rate=1e-2, num_epochs=60,
                            use_scheduler=False, seed=0)
     spec = ModelSpec(
-        module=CremadFusionNet(num_classes, dtype=dtype, width=width),
+        module=CremadFusionNet(num_classes, dtype=dtype, width=width,
+                               pool_kernel=pool_kernel),
         contract="jprobas",
         device_preprocess=device_preprocess,
     )

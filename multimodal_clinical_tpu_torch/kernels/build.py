@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("log_spectrogram",)
+SOURCES = ("log_spectrogram", "bn_sums", "maxpool")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,29 +43,37 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every source in ``names`` that has no library yet.  Returns
-    seconds per source built; nvcc's output (ptxas register and
-    shared-memory counts) goes beside each library as ``.log``.  Raises
-    with nvcc's output if one fails."""
+    """Compile every source in ``names`` that has no library yet, one nvcc
+    process per source, all started together.  Returns seconds per source
+    built; nvcc's output (ptxas register and shared-memory counts) goes
+    beside each library as ``.log``.  Raises with nvcc's output if one
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    seconds = {}
+    jobs = {}
+    t0 = time.perf_counter()
     for name in names:
         dst = library_path(name)
         if dst.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, dst)
+    seconds, failed = {}, []
+    for name, (proc, tmp, dst) in jobs.items():
+        output = proc.communicate()[0]
         seconds[name] = time.perf_counter() - t0
-        dst.with_suffix(".log").write_text(proc.stdout)
+        dst.with_suffix(".log").write_text(output)
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}")
-        os.replace(tmp, dst)  # atomic: a concurrent loader sees all or none
+            failed.append(f"nvcc failed on {name}.cu:\n{output}")
+        else:
+            os.replace(tmp, dst)  # atomic: a concurrent loader sees all or none
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 

@@ -1,5 +1,6 @@
-"""Shared building blocks: torch-matched initialisers, ``TorchDense`` and
-pooling (port of ``multimodal_clinical_tpu/models/common.py``).
+"""Shared building blocks: torch-matched initialisers, ``TorchDense``,
+``FusedBatchNorm`` and pooling (port of
+``multimodal_clinical_tpu/models/common.py``).
 
 Every module here keeps fp32 parameters and computes in a configurable
 ``dtype`` (bf16 on the main path), casting inputs and weights where the
@@ -16,6 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.fused_bn import batch_norm_inference, batch_norm_train_stats
 
 
 def kaiming_normal_fan_out_(w: torch.Tensor, generator=None) -> torch.Tensor:
@@ -53,6 +56,61 @@ class TorchDense(nn.Module):
         dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         return F.linear(x.to(dtype), self.weight.to(dtype),
                         self.bias.to(dtype))
+
+
+class BatchNormBase(nn.Module):
+    """Parameters and running statistics of the towers' batch norms: fp32
+    ``weight`` (flax ``scale``) and ``bias``, ``running_mean`` and
+    ``running_var`` buffers, momentum 0.1 (flax 0.9), eps 1e-5; scale ~
+    N(1, 0.02), bias 0 (cremad/backbone.py:136-142).  ``dtype`` is the
+    compute dtype; subclasses define ``forward``."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.momentum = 0.1
+        self.eps = 1e-5
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        nn.init.normal_(self.weight, 1.0, 0.02, generator=generator)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+
+class FusedBatchNorm(BatchNormBase):
+    """BatchNorm through ``ops/fused_bn.py`` (the BN-sums kernels on the
+    card), with the JAX module's semantics: the output in the input's dtype
+    (after a cast to ``dtype`` when given), and torch's UNBIASED variance
+    ``var * M / (M - 1)`` into ``running_var``, where the default BN of
+    ``models/resnet.py`` stores the biased one.  Parameter and buffer names
+    are the default BN's, so the same flax trees load.  Takes (N, C, ...)
+    as the towers give it; on a ``channels_last`` map the channels-last
+    view that the kernels read is free."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.movedim(1, -1)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        if not self.training:
+            y = batch_norm_inference(x, self.weight, self.bias,
+                                     self.running_mean, self.running_var,
+                                     self.eps)
+            return y.movedim(-1, 1)
+        y, mean, var = batch_norm_train_stats(x, self.weight, self.bias,
+                                              self.eps)
+        with torch.no_grad():
+            m = x.numel() // x.shape[-1]
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var * (m / max(m - 1, 1)), alpha=self.momentum)
+        return y.movedim(-1, 1)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

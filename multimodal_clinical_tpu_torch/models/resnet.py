@@ -10,6 +10,12 @@ flax tree onto them one to one.
 
 Init matches cremad/backbone.py:136-142: kaiming-normal fan-out convs, BN
 scale ~ N(1, 0.02), BN bias 0.
+
+The JAX encoder's two kernel switches: ``bn_fused=True`` puts
+``FusedBatchNorm`` (the BN-sums kernels) in place of every BN, and
+``pool_kernel="pallas"`` makes the stem max-pool the stored-index one
+(``ops/maxpool.py``).  The switch keeps the JAX package's value; in the
+port it selects the hand-written CUDA kernels.
 """
 
 from __future__ import annotations
@@ -20,37 +26,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import kaiming_normal_fan_out_
+from ..ops.maxpool import max_pool_3x3_s2_stored_index
+from .common import BatchNormBase, FusedBatchNorm, kaiming_normal_fan_out_
 
-_SLICE2 = "ROADMAP.md slice 2 (queue B, items 2 and 3)"
+POOL_KERNELS = ("xla", "pallas")
 
 
-class _BN(nn.Module):
+class _BN(BatchNormBase):
     """BatchNorm with the JAX package's default (flax ``nn.BatchNorm``)
     semantics, which differ from ``torch.nn.BatchNorm2d``: statistics in
-    fp32, and the BIASED batch variance goes into ``running_var``
-    (momentum 0.1, eps 1e-5).  ``F.batch_norm`` computes the batch
-    statistics into scratch buffers (momentum 1 leaves the batch mean and
-    the unbiased variance there) and the running buffers are updated here
-    by hand.  The output is in ``dtype`` or, when None, in the promotion of
-    the input with fp32, as flax's is."""
-
-    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
-        super().__init__()
-        self.dtype = dtype
-        self.momentum = 0.1
-        self.eps = 1e-5
-        self.weight = nn.Parameter(torch.empty(features))
-        self.bias = nn.Parameter(torch.empty(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
-        self.reset_parameters()
-
-    def reset_parameters(self, generator=None):
-        nn.init.normal_(self.weight, 1.0, 0.02, generator=generator)
-        nn.init.zeros_(self.bias)
-        self.running_mean.zero_()
-        self.running_var.fill_(1.0)
+    fp32, and the BIASED batch variance goes into ``running_var``.
+    ``F.batch_norm`` computes the batch statistics into scratch buffers
+    (momentum 1 leaves the batch mean and the unbiased variance there) and
+    the running buffers are updated here by hand.  The output is in
+    ``dtype`` or, when None, in the promotion of the input with fp32, as
+    flax's is."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = self.dtype or torch.promote_types(x.dtype,
@@ -72,6 +62,10 @@ class _BN(nn.Module):
             self.running_var.mul_(1.0 - self.momentum).add_(
                 biased, alpha=self.momentum)
         return y.to(out_dtype)
+
+
+def _bn(features: int, dtype: Optional[torch.dtype], fused: bool) -> nn.Module:
+    return (FusedBatchNorm if fused else _BN)(features, dtype)
 
 
 class Conv(nn.Module):
@@ -114,15 +108,15 @@ class StemConv(Conv):
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, planes: int, stride: int = 1,
                  downsample: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, bn_fused: bool = False):
         super().__init__()
         self.conv1 = Conv(cin, planes, 3, stride, dtype)
-        self.bn1 = _BN(planes, dtype)
+        self.bn1 = _bn(planes, dtype, bn_fused)
         self.conv2 = Conv(planes, planes, 3, 1, dtype)
-        self.bn2 = _BN(planes, dtype)
+        self.bn2 = _bn(planes, dtype, bn_fused)
         self.downsample = (
             nn.Sequential(Conv(cin, planes, 1, stride, dtype),
-                          _BN(planes, dtype))
+                          _bn(planes, dtype, bn_fused))
             if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -146,16 +140,12 @@ class ResNetEncoder(nn.Module):
             raise NotImplementedError(
                 "stem_space_to_depth=True is not ported (ROADMAP.md queue A, "
                 "item 20)")
-        if pool_kernel != "xla":
-            raise NotImplementedError(
-                f"pool_kernel={pool_kernel!r} (the stored-index max-pool "
-                f"kernels) comes with {_SLICE2}")
-        if bn_fused:
-            raise NotImplementedError(
-                f"bn_fused=True (the fused BN-statistics kernels) comes with "
-                f"{_SLICE2}")
+        if pool_kernel not in POOL_KERNELS:
+            raise ValueError(f"pool_kernel must be one of {POOL_KERNELS}, "
+                             f"got {pool_kernel!r}")
+        self.pool_kernel = pool_kernel
         self.conv1 = StemConv(in_channels, width, dtype)
-        self.bn1 = _BN(width, dtype)
+        self.bn1 = _bn(width, dtype, bn_fused)
         planes, cin = width, width
         for stage, blocks in enumerate(stage_sizes):
             layer = []
@@ -163,7 +153,7 @@ class ResNetEncoder(nn.Module):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 # BasicBlock nets change width exactly when striding
                 layer.append(BasicBlock(cin, planes, stride, stride != 1,
-                                        dtype))
+                                        dtype, bn_fused))
                 cin = planes
             self.add_module(f"layer{stage + 1}", nn.Sequential(*layer))
             planes *= 2
@@ -172,7 +162,11 @@ class ResNetEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view: channels_last
         x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
+        if self.pool_kernel == "pallas":
+            x = max_pool_3x3_s2_stored_index(
+                x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        else:
+            x = F.max_pool2d(x, 3, 2, 1)
         for stage in range(len(self.stage_sizes)):
             x = getattr(self, f"layer{stage + 1}")(x)
         return x.permute(0, 2, 3, 1)

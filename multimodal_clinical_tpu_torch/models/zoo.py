@@ -22,14 +22,17 @@ class CremadFusionNet(nn.Module):
     folded into the batch for the visual tower (backbone.py:178-181) and
     pooled jointly with space afterwards (joint_model.py:43-50).  ``width``
     is the stem width of both towers (64 in the reference; the tests narrow
-    it).
+    it).  ``pool_kernel`` is the towers' stem max-pool (see
+    ``ResNetEncoder``).
     """
 
     def __init__(self, num_classes: int, dtype: Optional[torch.dtype] = None,
-                 width: int = 64):
+                 width: int = 64, pool_kernel: str = "xla"):
         super().__init__()
-        self.x1_model = ResNetEncoder(1, width=width, dtype=dtype)
-        self.x2_model = ResNetEncoder(3, width=width, dtype=dtype)
+        self.x1_model = ResNetEncoder(1, width=width, dtype=dtype,
+                                      pool_kernel=pool_kernel)
+        self.x2_model = ResNetEncoder(3, width=width, dtype=dtype,
+                                      pool_kernel=pool_kernel)
         self.x1_classifier = TorchDense(8 * width, num_classes, dtype)
         self.x2_classifier = TorchDense(8 * width, num_classes, dtype)
 

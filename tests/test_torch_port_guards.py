@@ -1,5 +1,6 @@
 """Guards of the PyTorch port: what it imports, where its entry points run,
-and the switches it does not take yet."""
+which switches it takes, and that its CUDA-only wrappers refuse a CPU
+tensor."""
 
 import ast
 import math
@@ -21,7 +22,10 @@ from multimodal_clinical_tpu_torch.engine.state import create_train_state
 from multimodal_clinical_tpu_torch.engine.steps import make_eval_step
 from multimodal_clinical_tpu_torch.models.resnet import ResNetEncoder
 from multimodal_clinical_tpu_torch.models.zoo import CremadFusionNet
-from multimodal_clinical_tpu_torch.ops import cuda_spectrogram
+from multimodal_clinical_tpu_torch.models.common import FusedBatchNorm
+from multimodal_clinical_tpu_torch.ops import (
+    cuda_fused_bn, cuda_maxpool, cuda_spectrogram,
+)
 from multimodal_clinical_tpu_torch.utils.device import resolve_device
 
 torch.set_num_threads(2)
@@ -39,18 +43,27 @@ def _module_name(rel):
     return ".".join(["multimodal_clinical_tpu_torch", *parts])
 
 
+def _imported_roots(path):
+    """Top-level names of every absolute import in the file at ``path``."""
+    roots = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots += [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.append(node.module.split(".")[0])
+    return roots
+
+
 @pytest.mark.parametrize("rel", MODULES)
 def test_module_imports_nothing_of_jax(rel):
-    tree = ast.parse((PACKAGE / rel).read_text())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names = [node.module]
-        else:
-            continue
-        for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, (rel, name)
+    for name in _imported_roots(PACKAGE / rel):
+        assert name not in FORBIDDEN, (rel, name)
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    roots = _imported_roots(PACKAGE.parent / "chip_smoke.py")
+    assert "multimodal_clinical_tpu_torch" in roots
+    assert not FORBIDDEN.intersection(roots), roots
 
 
 def test_importing_every_module_loads_no_jax():
@@ -129,13 +142,49 @@ def test_fixture_weights_are_drawn_from_the_seed():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(bn_fused=True), "slice 2"),
-    (dict(pool_kernel="pallas"), "slice 2"),
     (dict(stem_space_to_depth=True), "item 20"),
 ])
 def test_resnet_switches_not_ported_yet_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         ResNetEncoder(1, width=8, **kwargs)
+
+
+def test_unknown_pool_kernel_raises():
+    with pytest.raises(ValueError, match="pool_kernel"):
+        ResNetEncoder(1, width=8, pool_kernel="triton")
+
+
+@pytest.mark.parametrize("kwargs", [dict(bn_fused=True),
+                                    dict(pool_kernel="pallas")])
+def test_resnet_switches_build(kwargs):
+    """Each switch builds its modules, with the default path's state_dict
+    names, and the encoder runs a train-mode pass on the CPU."""
+    enc = ResNetEncoder(1, stage_sizes=(1, 1), width=8, **kwargs)
+    default = ResNetEncoder(1, stage_sizes=(1, 1), width=8)
+    assert set(enc.state_dict()) == set(default.state_dict())
+    fused = [m for m in enc.modules() if isinstance(m, FusedBatchNorm)]
+    assert len(fused) == (6 if kwargs.get("bn_fused") else 0)
+    assert enc.pool_kernel == kwargs.get("pool_kernel", "xla")
+    x = torch.randn(2, 17, 19, 1, requires_grad=True)
+    enc(x).sum().backward()
+    assert x.grad.shape == x.shape
+
+
+@pytest.mark.parametrize("call", [
+    lambda: cuda_fused_bn.launch_channel_sums(torch.zeros(4, 8)),
+    lambda: cuda_fused_bn.launch_bwd_sums(
+        torch.zeros(4, 8), torch.zeros(4, 8), torch.zeros(8),
+        torch.ones(8)),
+    lambda: cuda_maxpool.launch_pool_fwd(torch.zeros(1, 4, 4, 8)),
+    lambda: cuda_maxpool.launch_pool_bwd(
+        torch.zeros(1, 2, 2, 8), torch.zeros(1, 2, 2, 8, dtype=torch.uint8),
+        4, 4),
+    lambda: cuda_spectrogram.launch_log_spectrogram(torch.zeros(2, 3000)),
+], ids=["bn_sums", "bn_bwd_sums", "pool_fwd", "pool_bwd", "log_spectrogram"])
+def test_cuda_wrappers_refuse_a_cpu_tensor(call):
+    """A kernel wrapper launches its kernel or raises: no plain fallback."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
 
 
 def test_vggsound_model_spec_is_jprobas_only():

@@ -6,6 +6,10 @@ The flax variables are initialised, handed over as numpy trees through
 in train and eval mode, input and parameter gradients, the BN running
 buffers after one train forward (flax's biased variance), one bf16 forward,
 and the round trip back through the JAX package's ``port_resnet_encoder``.
+The switched encoder (``bn_fused=True, pool_kernel="pallas"``: the
+BN-sums and stored-index max-pool paths, the JAX ones in interpret mode or
+their plain sums) is held the same way, with the unbiased running
+variance of ``FusedBatchNorm``.
 """
 
 import functools
@@ -237,3 +241,53 @@ def test_state_dict_round_trips_through_port_resnet_encoder(fusion_case):
         jax.tree_util.tree_map(np.testing.assert_array_equal, back_s,
                                ref["stats"][tower])
     assert set(jax_key_map(tmod)) == set(sd)
+
+
+SWITCHES = dict(bn_fused=True, pool_kernel="pallas")
+
+
+@pytest.fixture(scope="module")
+def switched_encoder_case():
+    x = np.random.default_rng(3).normal(size=(2, 33, 37, 1)).astype(
+        np.float32)
+    w = [np.random.default_rng(4).normal(size=(2, 5, 5, 2 * WIDTH)).astype(
+        np.float32)]
+    jmod = JaxResNetEncoder(stage_sizes=(1, 1), width=WIDTH, **SWITCHES)
+    return (x,), w, _jax_reference(jmod, (x,), w)
+
+
+def _switched_encoder(ref):
+    return _torch_model(ResNetEncoder(1, stage_sizes=(1, 1), width=WIDTH,
+                                      **SWITCHES), ref["params"], ref["stats"])
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_switched_encoder_forward_matches_jax(switched_encoder_case, train):
+    inputs, _, ref = switched_encoder_case
+    with torch.no_grad():
+        (got,) = _run_torch(_switched_encoder(ref), inputs, train)
+    (want,) = ref["train" if train else "eval"]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_switched_encoder_gradients_and_buffers_match_jax(
+        switched_encoder_case):
+    """One train-mode pass: input and parameter gradients, and the running
+    buffers (momentum 0.1 towards the mean and the UNBIASED variance)."""
+    inputs, weights, ref = switched_encoder_case
+    model = _switched_encoder(ref)
+    x = torch.from_numpy(inputs[0]).requires_grad_(True)
+    model.train()
+    (model(x) * torch.from_numpy(weights[0])).sum().backward()
+    _assert_scaled_close(x.grad.numpy(), ref["input_grads"][0],
+                         GRAD_SCALED_TOL, "input")
+    _assert_grads_match(model, ref["grads"])
+    sd = model.state_dict()
+    stats = [(key, path) for key, (coll, path, _) in
+             jax_key_map(model).items() if coll == "batch_stats"]
+    assert len(stats) == 2 * 6  # mean and var of the 6 BNs of (1, 1)
+    for key, path in stats:
+        np.testing.assert_allclose(sd[key].numpy(),
+                                   get_leaf(ref["new_stats"], path),
+                                   rtol=RTOL, atol=ATOL, err_msg=key)
