@@ -30,7 +30,17 @@ Phases, each of which raises on failure:
    towers, bf16, 309 classes), one warm-up step, timed steps, one eval
    step; every kernel of the path must have launched;
 8. switched main path: the same step with ``pool_kernel="pallas"``, whose
-   stem max-pools are the stored-index kernels.
+   stem max-pools are the stored-index kernels;
+9. probes: the ported tool probes' ``main`` at the TPU probes' full
+   geometries (``tools/proto_pallas_conv``: 8 conv geometries, the kernel
+   against cuDNN; ``tools/proto_bn_stats``: 3 geometries, conv -> stats ->
+   scale, shift, ReLU -> sum, the kernel's stats against the plain
+   formula's; ``tools/probe_pallas_layout``: variants A, B and C of the
+   visual stem's conv -> ReLU -> copy -> max-pool); each of the three
+   kernels must have launched;
+10. probe kernels: the conv, BN-stats and copy kernels against their plain
+   versions at every geometry of phase 9 and at ragged shapes, timed beside
+   their bound, plain version and library call.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; launches made to compare or time a kernel do not count.
@@ -50,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -110,6 +121,23 @@ TOWER_RATIO = 2.0
 # they differ by at most one bf16 ulp of an entry, under 2^-7 of the
 # largest entry; twice that is the limit
 BN_MODULE_TOL = 2.0 ** -6
+# the tool probes' kernels against their plain versions (phase 10).  Copy:
+# bit-equal.  One-pass BN stats: fp32 sums of the same terms in another
+# order, mean within 1e-5 of the channel's mean |x|, var within 2e-5 of its
+# mean x^2, two launches bit-equal.  Conv: both sides sum exact bf16
+# products in fp32 in another order and round once, so an entry differs by
+# at most one bf16 ulp (2^-7 of the larger of the two) where the two fp32
+# sums straddle a rounding boundary; near 0 the fp32 sums' own difference
+# is larger than that ulp: at K = 9 * 512 it passed 1e-6 of the largest
+# entry on the H100 (the tensor cores' fp32 sums against cuBLAS's), so the
+# absolute term is 1e-5 of the largest entry.  A wrong tap, fragment or halo
+# shows at the entries' own scale, 1e5 times that.
+STATS_MEAN_TOL, STATS_VAR_TOL = 1e-5, 2e-5
+CONV_ULP_RTOL, CONV_ULP_ATOL = 2.0 ** -7, 1e-5
+# H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet, 700 W)
+PEAK_BF16_FLOPS = 989e12
+# timed calls per variant in the probes' mains
+PROBE_ITERS = 20
 # the main path's towers: (batch, H, W, input channels)
 AUDIO_TOWER = (BATCH, 129, 626, 1)
 VISUAL_TOWER = (BATCH * 4, 224, 224, 3)
@@ -995,6 +1023,302 @@ def _profile_pass(one_pass, pair, top: int = 12):
         ((us, name) for name, us in kernels.items()), reverse=True)[:top]
 
 
+def _probe_launchers():
+    """The wrappers of the tool probes' kernels."""
+    from multimodal_clinical_tpu_torch.ops import cuda_bn_stats as cbs
+    from multimodal_clinical_tpu_torch.ops import cuda_conv3x3 as ccv
+    from multimodal_clinical_tpu_torch.ops import cuda_identity as cid
+
+    return {"conv3x3": ccv.launch_conv3x3, "bn_stats": cbs.launch_bn_stats,
+            "identity_copy": cid.launch_identity}
+
+
+def phase_probes(card: str):
+    """Phase 9: each ported probe's ``main`` at the TPU probe's full
+    geometries (they print their own lines), launch counts set to 0 just
+    before and read just after.  Returns the launches."""
+    from multimodal_clinical_tpu_torch.tools import (
+        probe_pallas_layout, proto_bn_stats, proto_pallas_conv,
+    )
+
+    launchers = _probe_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    proto_pallas_conv.main(check=False, iters=PROBE_ITERS)
+    proto_bn_stats.main(iters=PROBE_ITERS)
+    probe_pallas_layout.main(iters=PROBE_ITERS)
+    launches = {name: fn.launches for name, fn in launchers.items()}
+    log(f"[probes] {card}: the three probes' mains in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    missing = [name for name, count in launches.items() if not count]
+    if missing:
+        raise AssertionError(f"probe kernels not launched by their probes: "
+                             f"{missing}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _within_ulp(got, want, what: str) -> Tuple[float, ...]:
+    """(largest |kernel - plain| over CONV_ULP_RTOL max(|kernel|, |plain|)
+    + CONV_ULP_ATOL max |plain|, share of entries that differ at all,
+    largest |kernel - plain|, largest |plain|); raises past 1."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    limit = CONV_ULP_RTOL * torch.maximum(got.abs(), want.abs()) + (
+        CONV_ULP_ATOL * float(want.abs().max()))
+    worst = float((diff / limit.clamp_min(1e-30)).max())
+    if not worst <= 1.0:
+        raise AssertionError(f"conv3x3 {what}: kernel and plain differ by "
+                             f"{worst:.3f} of the limit")
+    return (worst, float((diff > 0).float().mean()), float(diff.max()),
+            float(want.abs().max()))
+
+
+def _conv_case(shape, seed: int):
+    b, h, w, cin, cout = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, h, w, cin, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    wt = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
+          * 0.05).to(torch.bfloat16)
+    return x, wt
+
+
+def _check_conv(x, wt, what: str):
+    from multimodal_clinical_tpu_torch.ops import cuda_conv3x3 as ccv
+    from multimodal_clinical_tpu_torch.ops.conv3x3 import conv3x3
+
+    got = ccv.launch_conv3x3(x, wt)
+    torch.cuda.synchronize()
+    checks = _within_ulp(got, conv3x3(x, wt), what)
+    if not torch.equal(got, ccv.launch_conv3x3(x, wt)):
+        raise AssertionError(f"conv3x3 {what}: two launches differ")
+    return checks
+
+
+def _check_stats(x, what: str):
+    from multimodal_clinical_tpu_torch.ops import cuda_bn_stats as cbs
+    from multimodal_clinical_tpu_torch.ops.bn_stats import bn_stats
+
+    got = cbs.launch_bn_stats(x)
+    torch.cuda.synchronize()
+    want = bn_stats(x)
+    x32 = x.reshape(-1, x.shape[-1]).float()
+    errs = [(got[0] - want[0]).abs(), (got[1] - want[1]).abs()]
+    scales = [x32.abs().mean(0), x32.square().mean(0)]
+    del x32
+    rel = [float((e / s.clamp_min(1e-30)).max())
+           for e, s in zip(errs, scales)]
+    if not (rel[0] <= STATS_MEAN_TOL and rel[1] <= STATS_VAR_TOL):
+        raise AssertionError(f"bn_stats {what}: mean and var differ by "
+                             f"{rel[0]:.3e} and {rel[1]:.3e} of their scale")
+    again = cbs.launch_bn_stats(x)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"bn_stats {what}: two launches differ")
+    return max(float(e.max()) for e in errs), rel
+
+
+def _check_copy(x, what: str):
+    from multimodal_clinical_tpu_torch.ops import cuda_identity as cid
+    from multimodal_clinical_tpu_torch.ops.identity import identity
+
+    got = cid.launch_identity(x)
+    torch.cuda.synchronize()
+    if not (got.stride() == x.stride() and torch.equal(got, identity(x))):
+        raise AssertionError(f"identity_copy {what}: kernel and plain differ")
+
+
+def _entry(name, src, replaces, launches, err, rows, **extra):
+    """A kernels-line entry: times and bounds summed over ``rows``, one per
+    probe geometry (ms, plain_ms, library_ms, bytes_ms, ops_ms)."""
+    total = {k: sum(r[k] for r in rows) for k in (
+        "ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"multimodal_clinical_tpu_torch/csrc/{src}",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        **extra,
+        # one call at each of the probe's geometries; every time is the sum
+        # (the log has each geometry's)
+        "shapes": [r["shape"] for r in rows],
+        "ms": total["ms"],
+        "plain_ms": total["plain_ms"],
+        "bound_ms": sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows),
+        "bound_by": ("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                     else "operations"),
+        "library_ms": total["library_ms"],
+    }
+
+
+def phase_probe_kernels(launches):
+    """Phase 10: the conv, BN-stats and copy kernels against their plain
+    versions at every geometry the probes ran (fresh random inputs of the
+    same shapes) and at ragged shapes, timed beside their bound, plain
+    version and library call."""
+    from multimodal_clinical_tpu_torch.ops import cuda_bn_stats as cbs
+    from multimodal_clinical_tpu_torch.ops import cuda_conv3x3 as ccv
+    from multimodal_clinical_tpu_torch.ops import cuda_fused_bn as cfb
+    from multimodal_clinical_tpu_torch.ops import cuda_identity as cid
+    from multimodal_clinical_tpu_torch.ops.bn_stats import bn_stats
+    from multimodal_clinical_tpu_torch.ops.conv3x3 import conv3x3
+    from multimodal_clinical_tpu_torch.ops.identity import identity
+    from multimodal_clinical_tpu_torch.tools import (
+        probe_pallas_layout, proto_bn_stats, proto_pallas_conv,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    entries = []
+
+    # conv: ragged shapes first (W = 5, 20, 79, 157; H W and B H W not
+    # multiples of the 128-row tile; Cin = 16, a ragged K step; Cout not a
+    # multiple of the tile), then the probe's 8 geometries
+    worst = share = err = rel = 0.0
+    for shape in ((3, 5, 5, 16, 16), (2, 7, 20, 32, 48), (1, 9, 79, 64, 64),
+                  (3, 3, 157, 16, 32), (1, 4, 6, 128, 144),
+                  (7, 13, 157, 64, 64)):
+        w_, s_, e, scale = _check_conv(*_conv_case(shape, seed=sum(shape)),
+                                       str(shape))
+        err, worst, share = max(err, e), max(worst, w_), max(share, s_)
+        rel = max(rel, e / scale)
+    log(f"[probe-kernels] conv3x3 ragged shapes: {worst:.3f} of the one-ulp "
+        f"limit, max |err| {err:.3e} ({rel:.2e} of the largest entry), at "
+        f"most {share:.2e} of entries differ")
+    rows = []
+    for name, b, h, w, cin, cout, _ in proto_pallas_conv.GEOMS:
+        x, wt = _conv_case((b, h, w, cin, cout), seed=cin)
+        w_, s_, e, scale = _check_conv(x, wt, name)
+        err, worst, rel = max(err, e), max(worst, w_), max(rel, e / scale)
+        x_nchw = x.permute(0, 3, 1, 2)
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        m = b * h * w
+        row = dict(
+            shape=(b, h, w, cin, cout),
+            ms=cuda_ms(lambda: ccv.launch_conv3x3(x, wt)),
+            plain_ms=cuda_ms(lambda: conv3x3(x, wt), iters=5),
+            library_ms=cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1)),
+            bytes_ms=2 * (m * cin + m * cout + 9 * cin * cout)
+            / PEAK_BYTES_PER_S * 1e3,
+            ops_ms=2 * m * cout * 9 * cin / PEAK_BF16_FLOPS * 1e3)
+        rows.append(row)
+        log(f"[probe-kernels] conv3x3 {name} {row['shape']}: "
+            f"{row['ms']:.4f} ms ({row['ops_ms'] / row['ms'] * 100:.1f}% of "
+            f"the bf16 peak), plain {row['plain_ms']:.4f}, F.conv2d "
+            f"{row['library_ms']:.4f}, bound "
+            f"{max(row['bytes_ms'], row['ops_ms']):.4f}; {w_:.3f} of the "
+            f"one-ulp limit, max |err| {e:.3e} ({e / scale:.2e} of the largest "
+            f"entry), {s_:.2e} of entries differ")
+        del x, wt, x_nchw, w_oihw
+    entries.append(_entry(
+        "conv3x3", "conv3x3.cu",
+        "tools/proto_pallas_conv.py:69 conv_pallas", launches["conv3x3"],
+        err, rows, max_share_of_ulp_limit=worst,
+        max_err_of_largest_entry=rel))
+    torch.cuda.empty_cache()
+
+    # BN stats: ragged (M not a multiple of a block's rows; C = 24, and 96:
+    # a 64-channel group and a 32-channel one), then the probe's 3
+    # geometries
+    err, rel = 0.0, [0.0, 0.0]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for m, c, dtype in ((1_000_003, 64, torch.bfloat16),
+                        (1003, 128, torch.float32), (513, 24, torch.float32),
+                        (37, 512, torch.bfloat16), (2001, 96, torch.bfloat16)):
+        x = torch.randn(m, c, device="cuda", generator=gen).add_(0.5).to(dtype)
+        e, r = _check_stats(x, f"({m}, {c}) {dtype}")
+        err, rel = max(err, e), [max(a, b) for a, b in zip(rel, r)]
+    rows = []
+    for name, (n, h, w, _, c) in proto_bn_stats.GEOMS.items():
+        x = torch.randn(n, h, w, c, device="cuda", generator=gen).add_(
+            0.5).to(torch.bfloat16)
+        e, r = _check_stats(x, name)
+        err, rel = max(err, e), [max(a, b) for a, b in zip(rel, r)]
+        x_nchw = x.permute(0, 3, 1, 2)
+        row = dict(shape=(n, h, w, c),
+                   ms=cuda_ms(lambda: cbs.launch_bn_stats(x)),
+                   plain_ms=cuda_ms(lambda: bn_stats(x)),
+                   library_ms=cuda_ms(lambda: torch.batch_norm_stats(
+                       x_nchw, 1e-5)),
+                   bytes_ms=(2 * x.numel() + 8 * c) / PEAK_BYTES_PER_S * 1e3,
+                   ops_ms=2 * x.numel() / PEAK_FP32_FLOPS * 1e3)
+        rows.append(row)
+        log(f"[probe-kernels] bn_stats {name} {row['shape']} bf16: "
+            f"{row['ms']:.4f} ms ({row['bytes_ms'] / row['ms'] * 100:.1f}% "
+            f"of the bandwidth), plain {row['plain_ms']:.4f}, "
+            f"batch_norm_stats {row['library_ms']:.4f}, bound "
+            f"{row['bytes_ms']:.4f}; mean and var within {r[0]:.2e} and "
+            f"{r[1]:.2e} of their scale")
+        del x, x_nchw
+    # one launch with a last-block fold against the two launches of the
+    # BN-sums kernels (csrc/bn_sums.cu: the same reads, then a second
+    # kernel over the partials), at the probe's maps and at the towers'
+    # stage-4 maps, where a launch costs as much as the reads
+    one_vs_two = []
+    for shape in [*(g[:3] + g[4:] for g in proto_bn_stats.GEOMS.values()),
+                  (896, 7, 7, 512), (224, 5, 20, 512)]:
+        x = torch.randn(shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        one_vs_two.append((shape, cuda_ms(lambda: cbs.launch_bn_stats(x)),
+                           cuda_ms(lambda: cfb.launch_channel_sums(x))))
+        log(f"[probe-kernels] BN statistics {shape} bf16: one launch "
+            f"(bn_stats) {one_vs_two[-1][1]:.4f} ms, two launches (bn_sums) "
+            f"{one_vs_two[-1][2]:.4f} ms, bound "
+            f"{2 * x.numel() / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+        del x
+    entries.append(_entry(
+        "bn_stats", "bn_stats.cu", "tools/proto_bn_stats.py:59 "
+        "pallas_bn_stats", launches["bn_stats"], err, rows,
+        max_rel_err_mean=rel[0], max_rel_err_var=rel[1],
+        one_vs_two_launch_ms=one_vs_two))
+    torch.cuda.empty_cache()
+
+    # copy: ragged (a 2-byte tail, uint8, an NCHW channels_last map), then
+    # the layout probe's conv output and its (H, W, C, N) view
+    for x in (torch.randn(1001, device="cuda").bfloat16(),
+              torch.randint(0, 255, (4099,), device="cuda",
+                            dtype=torch.uint8),
+              torch.randn(5, 16, 9, 3, device="cuda").to(
+                  memory_format=torch.channels_last)):
+        _check_copy(x, f"{tuple(x.shape)} {x.dtype}")
+    n, h, w, _, c = probe_pallas_layout.GEOM
+    t = torch.randn(n, h, w, c, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    rows = []
+    for label, view in (("NHWC map", t), ("(H, W, C, N) view",
+                                          t.permute(1, 2, 3, 0))):
+        _check_copy(view, label)
+        row = dict(shape=tuple(view.shape),
+                   ms=cuda_ms(lambda: cid.launch_identity(view)),
+                   plain_ms=cuda_ms(lambda: identity(view)),
+                   library_ms=cuda_ms(lambda: view.clone()),
+                   bytes_ms=2 * 2 * view.numel() / PEAK_BYTES_PER_S * 1e3,
+                   ops_ms=0.0)
+        rows.append(row)
+        log(f"[probe-kernels] identity_copy {label} {row['shape']} bf16: "
+            f"{row['ms']:.4f} ms ({row['bytes_ms'] / row['ms'] * 100:.1f}% "
+            f"of the bandwidth), plain {row['plain_ms']:.4f}, clone "
+            f"{row['library_ms']:.4f}, bound {row['bytes_ms']:.4f}; "
+            f"bit-equal")
+    del t, view
+    entries.append(_entry(
+        "identity_copy", "identity_copy.cu",
+        "tools/probe_pallas_layout.py:45 pallas_identity",
+        launches["identity_copy"], 0.0, rows))
+    torch.cuda.empty_cache()
+    for e in entries:
+        log(f"[probe-kernels] {e['name']}, one call at each of "
+            f"{len(e['shapes'])} probe shapes: {e['ms']:.4f} ms, plain "
+            f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, "
+            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}); launches on "
+            f"the probes' path {e['launches']}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -1011,6 +1335,7 @@ def main() -> int:
                                       *phase_switched_towers(device, card))
     phase_card_against_cpu(device)
     phase_main_path(device, card, kernels)
+    kernels += phase_probe_kernels(phase_probes(card))
     missing = [e["name"] for e in kernels if not e["launches"]]
     if missing:
         raise AssertionError(f"kernels not launched on their path: {missing}")

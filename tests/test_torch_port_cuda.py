@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the
-log-spectrogram, the BN sums (forward and backward) and the stored-index
-max-pool (forward and backward), at ragged shapes, with the inputs they
+log-spectrogram, the BN sums (forward and backward), the stored-index
+max-pool (forward and backward), and the tool probes' kernels (identity
+copy, one-pass BN stats, 3x3 conv), at ragged shapes, with the inputs they
 refuse and bit-identical repeat launches.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
@@ -15,8 +16,12 @@ import pytest
 import torch
 
 from multimodal_clinical_tpu_torch.ops import (
-    cuda_fused_bn, cuda_maxpool, cuda_spectrogram, fused_bn, maxpool,
+    cuda_bn_stats, cuda_conv3x3, cuda_fused_bn, cuda_identity, cuda_maxpool,
+    cuda_spectrogram, fused_bn, maxpool,
 )
+from multimodal_clinical_tpu_torch.ops.bn_stats import bn_stats
+from multimodal_clinical_tpu_torch.ops.conv3x3 import conv3x3
+from multimodal_clinical_tpu_torch.ops.identity import identity
 from multimodal_clinical_tpu_torch.ops.spectrogram import log_spectrogram
 
 pytestmark = pytest.mark.cuda
@@ -33,6 +38,16 @@ LOG_ATOL = 1e-3
 # reduction): each differs by a few hundred fp32 roundings at most, held
 # to 1e-5 of the sum of the terms' magnitudes.
 SUM_RTOL = 1e-5
+# one-pass BN stats: mean within 1e-5 of the channel's mean |x|, var within
+# 2e-5 of its mean x^2 (fp32 sums in another order); the shapes add C = 96
+# (a 64-channel group and a 32-channel one), 2048 (32 groups) and the
+# towers' stage-4 map
+MEAN_TOL, VAR_TOL = 1e-5, 2e-5
+# conv: both sides sum exact bf16 products in fp32 and round once; an entry
+# may differ by one bf16 ulp (2^-7 of the larger of the two), and near 0 by
+# the fp32 sums' own difference (past 1e-6 of the largest entry at
+# K = 9 * 512 on the H100; chip_smoke.py states the same limit)
+ULP_RTOL, ULP_ATOL = 2.0 ** -7, 1e-5
 
 
 @pytest.fixture(autouse=True)
@@ -201,3 +216,134 @@ def test_pool_kernels_refuse_what_they_do_not_take():
         cuda_maxpool.launch_pool_bwd(y, idx.int(), 9, 7)
     with pytest.raises(ValueError, match="do not pool"):
         cuda_maxpool.launch_pool_bwd(y, idx, 11, 7)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.randn(3, 5, 7, 16, device="cuda").bfloat16(),
+    lambda: torch.randn(3, 5, 7, 16, device="cuda").bfloat16().permute(
+        1, 2, 3, 0),                                  # the (H, W, C, N) view
+    lambda: torch.randn(1001, device="cuda").bfloat16(),   # a 2-byte tail
+    lambda: torch.randn(5, 16, 9, 3, device="cuda").to(
+        memory_format=torch.channels_last),
+    lambda: torch.randint(0, 255, (4099,), device="cuda", dtype=torch.uint8),
+], ids=["nhwc", "hwcn_view", "tail", "channels_last", "uint8"])
+def test_identity_kernel_matches_plain(make):
+    x = make()
+    before = cuda_identity.launch_identity.launches
+    got = cuda_identity.launch_identity(x)
+    torch.cuda.synchronize()
+    assert cuda_identity.launch_identity.launches == before + 1
+    want = identity(x)
+    assert got.stride() == x.stride() and got.dtype == x.dtype
+    assert torch.equal(got, want) and got.data_ptr() != x.data_ptr()
+
+
+def test_identity_kernel_refuses_what_it_does_not_take():
+    x = torch.zeros(4, 6, 5, 16, device="cuda")
+    with pytest.raises(ValueError, match="dense"):
+        cuda_identity.launch_identity(x[:, :3])
+    with pytest.raises(ValueError, match="dense"):
+        cuda_identity.launch_identity(torch.zeros(3, 1, device="cuda").expand(
+            3, 4))
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_identity.launch_identity(x.flatten()[1:])
+
+
+def _assert_stats_close(got, want, x32):
+    mean, var = got
+    assert mean.dtype == var.dtype == torch.float32
+    assert ((mean - want[0]).abs() <= MEAN_TOL * x32.abs().mean(0)).all()
+    assert ((var - want[1]).abs() <= VAR_TOL * x32.square().mean(0)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c", BN_SHAPES + [(1_000_003, 64), (2001, 96),
+                                            (300, 2048), (43_904, 512)])
+def test_bn_stats_kernel_matches_plain(m, c, dtype):
+    rng = np.random.default_rng(m)
+    x = _card_tensor(rng, (m, c), dtype, loc=0.5)
+    before = cuda_bn_stats.launch_bn_stats.launches
+    got = cuda_bn_stats.launch_bn_stats(x)
+    torch.cuda.synchronize()
+    assert cuda_bn_stats.launch_bn_stats.launches == before + 1
+    _assert_stats_close(got, bn_stats(x), x.float())
+    # no float atomics, and the ticket counter is back at 0: a second
+    # launch gives the same bits
+    again = cuda_bn_stats.launch_bn_stats(x)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bn_stats_kernel_back_to_back_launches_agree():
+    """Launches of two shapes queued back to back on one stream, with no
+    synchronisation between them: each shape's results are the same bits
+    every time (the last block of each launch resets the counter the next
+    launch takes tickets from)."""
+    rng = np.random.default_rng(7)
+    a = _card_tensor(rng, (300_001, 64), torch.bfloat16, loc=0.5)
+    b = _card_tensor(rng, (4099, 128), torch.bfloat16, loc=-1.0)
+    outs = [cuda_bn_stats.launch_bn_stats(t) for t in (a, b, a, b, a)]
+    torch.cuda.synchronize()
+    for i, t in enumerate((a, b, a, b, a)):
+        first = outs[i % 2]
+        assert all(torch.equal(u, v) for u, v in zip(outs[i], first))
+        _assert_stats_close(outs[i], bn_stats(t), t.float())
+
+
+def test_bn_stats_kernel_refuses_what_it_does_not_take():
+    x = torch.zeros(4, 6, 5, 16, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_bn_stats.launch_bn_stats(
+            torch.zeros(4, 16, 6, 5, device="cuda").permute(0, 2, 3, 1))
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_bn_stats.launch_bn_stats(x.half())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_bn_stats.launch_bn_stats(x[..., :12].contiguous())
+
+
+def _assert_within_ulp(got, want):
+    got, want = got.float(), want.float()
+    limit = (ULP_RTOL * torch.maximum(got.abs(), want.abs())
+             + ULP_ATOL * want.abs().max())
+    assert ((got - want).abs() <= limit).all(), (got - want).abs().max()
+
+
+# (B, H, W, Cin, Cout): W = 5, 20, 79 and 157 (the audio stages' widths),
+# H W not a multiple of the 128-row tile, B H W below one tile, Cin = 16
+# (K = 144, a ragged K step), Cout not a multiple of the 64- or 128-wide
+# tile, and a visual stage-4 shape
+CONV_SHAPES = [(3, 5, 5, 16, 16), (2, 7, 20, 32, 48), (1, 9, 79, 64, 64),
+               (2, 3, 157, 16, 32), (1, 4, 6, 128, 144), (5, 7, 7, 512, 512),
+               (3, 17, 79, 128, 128), (1, 1, 1, 16, 16)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", CONV_SHAPES)
+def test_conv3x3_kernel_matches_plain(b, h, w, cin, cout):
+    rng = np.random.default_rng(b * h * w + cin)
+    x = _card_tensor(rng, (b, h, w, cin), torch.bfloat16)
+    wt = (_card_tensor(rng, (3, 3, cin, cout), torch.float32) * 0.05).to(
+        torch.bfloat16)
+    before = cuda_conv3x3.launch_conv3x3.launches
+    got = cuda_conv3x3.launch_conv3x3(x, wt)
+    torch.cuda.synchronize()
+    assert cuda_conv3x3.launch_conv3x3.launches == before + 1
+    assert got.shape == (b, h, w, cout) and got.dtype == torch.bfloat16
+    _assert_within_ulp(got, conv3x3(x, wt))
+    # and the plain version against the library conv in fp32 (the halo)
+    want = torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2).float(), wt.permute(3, 2, 0, 1).float(),
+        padding=1).permute(0, 2, 3, 1)
+    _assert_within_ulp(got, want)
+    assert torch.equal(got, cuda_conv3x3.launch_conv3x3(x, wt))
+
+
+def test_conv3x3_kernel_refuses_what_it_does_not_take():
+    x = torch.zeros(2, 5, 5, 16, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 16, 32, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_conv3x3.launch_conv3x3(x.float(), w)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        cuda_conv3x3.launch_conv3x3(x[..., :8].contiguous(), w[:, :, :8])
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_conv3x3.launch_conv3x3(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="one card|CUDA"):
+        cuda_conv3x3.launch_conv3x3(x, w.cpu())

@@ -24,7 +24,8 @@ from multimodal_clinical_tpu_torch.models.resnet import ResNetEncoder
 from multimodal_clinical_tpu_torch.models.zoo import CremadFusionNet
 from multimodal_clinical_tpu_torch.models.common import FusedBatchNorm
 from multimodal_clinical_tpu_torch.ops import (
-    cuda_fused_bn, cuda_maxpool, cuda_spectrogram,
+    cuda_bn_stats, cuda_conv3x3, cuda_fused_bn, cuda_identity, cuda_maxpool,
+    cuda_spectrogram,
 )
 from multimodal_clinical_tpu_torch.utils.device import resolve_device
 
@@ -180,7 +181,13 @@ def test_resnet_switches_build(kwargs):
         torch.zeros(1, 2, 2, 8), torch.zeros(1, 2, 2, 8, dtype=torch.uint8),
         4, 4),
     lambda: cuda_spectrogram.launch_log_spectrogram(torch.zeros(2, 3000)),
-], ids=["bn_sums", "bn_bwd_sums", "pool_fwd", "pool_bwd", "log_spectrogram"])
+    lambda: cuda_identity.launch_identity(torch.zeros(1, 4, 4, 8)),
+    lambda: cuda_bn_stats.launch_bn_stats(torch.zeros(1, 4, 4, 8)),
+    lambda: cuda_conv3x3.launch_conv3x3(
+        torch.zeros(1, 4, 4, 16, dtype=torch.bfloat16),
+        torch.zeros(3, 3, 16, 16, dtype=torch.bfloat16)),
+], ids=["bn_sums", "bn_bwd_sums", "pool_fwd", "pool_bwd", "log_spectrogram",
+        "identity_copy", "bn_stats", "conv3x3"])
 def test_cuda_wrappers_refuse_a_cpu_tensor(call):
     """A kernel wrapper launches its kernel or raises: no plain fallback."""
     with pytest.raises(ValueError, match="CUDA tensor"):
