@@ -9,7 +9,8 @@ Phases, each of which raises on failure:
    nvcc per source, all at once;
 3. kernels: the log-STFT kernel against its plain PyTorch version on the
    card, at the main path's shape and at a ragged one, with its times
-   beside its bound and the library call that computes the same function;
+   beside its bound and the library call that computes the same function,
+   each one's share of the bound, and the operations the FFT executes;
 4. switched towers: the two full-width bf16 towers with
    ``bn_fused=True, pool_kernel="pallas"``, forward and backward on the
    main path's preprocessed inputs.  A first pass records the shape of
@@ -40,7 +41,9 @@ Phases, each of which raises on failure:
    kernels must have launched;
 10. probe kernels: the conv, BN-stats and copy kernels against their plain
    versions at every geometry of phase 9 and at ragged shapes, timed beside
-   their bound, plain version and library call.
+   their bound, plain version and library call, with each one's share of
+   the bound (for the conv, each geometry's share of the bf16 peak beside
+   cuDNN's).
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; launches made to compare or time a kernel do not count.
@@ -240,9 +243,13 @@ def phase_kernels(device):
     # frame (2.5 n log2 n), the window (n) and |X| (3 per bin)
     fft_flops = b * frames * (2.5 * n_fft * math.log2(n_fft) + n_fft
                               + 3 * (n_fft // 2 + 1))
-    # what this kernel's DFT formulation executes (log line only: a floor of
-    # the formulation, not of the function)
-    dft_flops = 2 * b * frames * n_fft * 2 * (n_fft // 2 + 1)
+    # what this kernel executes (log line only): per pair of frames the
+    # window (2 n), the complex four-step FFT's (n / 2) log2 n butterflies
+    # of 10 and its n twiddle products of 6; per frame and bin the split,
+    # |X| and the log (9)
+    kernel_flops = (b * -(-frames // 2) * (5 * n_fft * math.log2(n_fft)
+                                          + 8 * n_fft)
+                    + b * frames * (n_fft // 2 + 1) * 9)
     bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
     ops_ms = fft_flops / PEAK_FP32_FLOPS * 1e3
     # "ms" is the contract's name for the kernel's time, "kernel_ms" the
@@ -266,9 +273,11 @@ def phase_kernels(device):
     }
     log(f"[kernels] log_spectrogram {(b, n)}: {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, torch.stft {library_ms:.4f} ms, bound "
-        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}); the DFT "
-        f"formulation's fp32 operations alone would take "
-        f"{dft_flops / PEAK_FP32_FLOPS * 1e3:.4f} ms at peak")
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), "
+        f"{entry['bound_ms'] / ms * 100:.1f}% of it (torch.stft "
+        f"{entry['bound_ms'] / library_ms * 100:.1f}%); the FFT design "
+        f"executes {kernel_flops / 1e9:.3f} GFLOP, "
+        f"{kernel_flops / PEAK_FP32_FLOPS * 1e3:.4f} ms at the fp32 peak")
     return [entry]
 
 
@@ -1209,7 +1218,8 @@ def phase_probe_kernels(launches):
         log(f"[probe-kernels] conv3x3 {name} {row['shape']}: "
             f"{row['ms']:.4f} ms ({row['ops_ms'] / row['ms'] * 100:.1f}% of "
             f"the bf16 peak), plain {row['plain_ms']:.4f}, F.conv2d "
-            f"{row['library_ms']:.4f}, bound "
+            f"{row['library_ms']:.4f} "
+            f"({row['ops_ms'] / row['library_ms'] * 100:.1f}%), bound "
             f"{max(row['bytes_ms'], row['ops_ms']):.4f}; {w_:.3f} of the "
             f"one-ulp limit, max |err| {e:.3e} ({e / scale:.2e} of the largest "
             f"entry), {s_:.2e} of entries differ")
@@ -1314,8 +1324,11 @@ def phase_probe_kernels(launches):
         log(f"[probe-kernels] {e['name']}, one call at each of "
             f"{len(e['shapes'])} probe shapes: {e['ms']:.4f} ms, plain "
             f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, "
-            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}); launches on "
-            f"the probes' path {e['launches']}")
+            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+            f"{e['bound_ms'] / e['ms'] * 100:.1f}% of it (library "
+            f"{e['bound_ms'] / e['library_ms'] * 100:.1f}%; kernel / library "
+            f"{e['ms'] / e['library_ms']:.3f}); launches on the probes' path "
+            f"{e['launches']}")
     return entries
 
 

@@ -1,8 +1,11 @@
 """CUDA 3x3 SAME convolution (``csrc/conv3x3.cu``) and its wrapper.
 
 Port of ``tools/proto_pallas_conv.py::conv_pallas``: an implicit GEMM on
-the bf16 tensor cores (``mma.sync``), fp32 accumulation, one rounding to
-bf16, the halo masked in the kernel.  It takes the JAX layouts: x
+the bf16 tensor cores (``wgmma`` from shared memory, fed through an
+``mbarrier`` ring by a producer warpgroup: the weights by TMA, the im2col
+tile by TMA at Cin a multiple of 64 and by a ``cp.async`` gather
+otherwise), fp32 accumulation, one rounding to bf16, the halo masked in
+the kernel.  It takes the JAX layouts: x
 (B, H, W, Cin) contiguous, the NHWC view of a channels_last map, and w
 (3, 3, Cin, Cout) HWIO contiguous.  The kernel source says what bounds it
 and how its design answers.  The plain version is

@@ -89,9 +89,32 @@ def test_kernel_refuses_what_it_does_not_take():
         cuda_spectrogram.launch_log_spectrogram(x.t())
     with pytest.raises(ValueError):
         cuda_spectrogram.launch_log_spectrogram(x[:, :100])  # n <= n_fft/2
-    # too much shared memory: the C entry refuses it (cudaErrorInvalidValue)
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        cuda_spectrogram.launch_log_spectrogram(x, hop=4096)
+    # n_fft without a digit plan: a power of two past 1024, and none
+    with pytest.raises(ValueError, match="power of two from 64 to 1024"):
+        cuda_spectrogram.launch_log_spectrogram(x, n_fft=2048)
+    with pytest.raises(ValueError, match="power of two from 64 to 1024"):
+        cuda_spectrogram.launch_log_spectrogram(x, n_fft=300)
+
+
+# (n_fft, shape, hop): every other digit plan (16 x 8, 32 x 16, 32 x 32, and
+# 8 x 8), hop 1, hop > n_fft, and a length with one frame (N < hop)
+FFT_CASES = [(128, (3, 4001), 64), (512, (2, 20000), 100),
+             (1024, (2, 30001), 300), (64, (2, 1000), 16),
+             (256, (2, 700), 1), (256, (2, 5000), 300), (256, (3, 200), 256)]
+
+
+@pytest.mark.parametrize("n_fft,shape,hop", FFT_CASES)
+def test_fft_kernel_takes_every_plan_and_hop(n_fft, shape, hop):
+    rng = np.random.default_rng(n_fft + hop)
+    x = torch.from_numpy(rng.normal(scale=0.1, size=shape).astype(
+        np.float32)).cuda()
+    got = cuda_spectrogram.launch_log_spectrogram(x, n_fft=n_fft, hop=hop)
+    torch.cuda.synchronize()
+    want = log_spectrogram(x, n_fft=n_fft, hop=hop)
+    assert got.shape == want.shape
+    _compare(got, want)
+    assert torch.equal(got, cuda_spectrogram.launch_log_spectrogram(
+        x, n_fft=n_fft, hop=hop))
 
 
 def _card_tensor(rng, shape, dtype, loc=0.0):
@@ -314,6 +337,14 @@ def _assert_within_ulp(got, want):
 CONV_SHAPES = [(3, 5, 5, 16, 16), (2, 7, 20, 32, 48), (1, 9, 79, 64, 64),
                (2, 3, 157, 16, 32), (1, 4, 6, 128, 144), (5, 7, 7, 512, 512),
                (3, 17, 79, 128, 128), (1, 1, 1, 16, 16)]
+# the wgmma design's edges: fewer K steps than ring stages (Cin = 16: 3 of
+# 64), Cout = 64 on the 256 x 64 tile and Cout = 192 (a 128-wide N tile and
+# a half-empty one), an M tail of one row on each tile (129 = 128 + 1 with
+# the cp.async gather, 257 = 256 + 1 with the im2col TMA), and more M tiles
+# than SMs (196 and 160 tiles for 132)
+CONV_SHAPES += [(2, 11, 13, 16, 64), (1, 33, 40, 64, 64), (2, 9, 14, 64, 192),
+                (1, 3, 43, 32, 128), (1, 1, 257, 64, 64),
+                (16, 56, 56, 64, 64), (4, 64, 80, 128, 128)]
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout", CONV_SHAPES)
