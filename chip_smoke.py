@@ -21,8 +21,9 @@ Phases, each of which raises on failure:
    the towers call it;
 5. kernels: the BN-sums and max-pool kernels as in 3, at every shape
    phase 4 recorded, summed over a pass's calls, and at ragged shapes; two
-   launches must agree bit for bit; the stem's switched BN module against
-   the default BN;
+   launches must agree bit for bit; the BN-sums forward's and the max-pool
+   backward's device-only time per call (``torch.profiler``) beside the
+   event-pair time; the stem's switched BN module against the default BN;
 6. card against CPU: a narrow fp32 VGGSound step, two train steps from the
    same weights on the card and on the CPU, with the default and with the
    stored-index max-pool; a narrow encoder with both kernel switches on,
@@ -60,7 +61,6 @@ import contextlib
 import json
 import math
 import statistics
-import subprocess
 import sys
 import time
 from typing import Tuple
@@ -68,6 +68,10 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from multimodal_clinical_tpu_torch.benchmarks.switched_kernels import (
+    card_line, cuda_ms, device_ms,
+)
 
 BATCH, CLASSES = 224, 309
 WARMUP_STEPS, TIMED_STEPS, EVAL_STEPS = 1, 5, 1
@@ -148,28 +152,6 @@ VISUAL_TOWER = (BATCH * 4, 224, 224, 3)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def phase_build():
@@ -426,34 +408,42 @@ def phase_switched_kernels(device, calls, launches):
     from multimodal_clinical_tpu_torch.ops import fused_bn, maxpool
 
     names = ("bn_sums", "bn_bwd_sums", "maxpool_fwd", "maxpool_bwd")
-    totals = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
-                      ops=0.0, calls=0, err=0.0, rel=0.0) for n in names}
+    totals = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, device_ms=0.0,
+                      bytes=0.0, ops=0.0, calls=0, err=0.0, rel=0.0)
+              for n in names}
 
-    def add(name, count, ms, plain_ms, library_ms, bytes_moved, ops, err):
+    def add(name, count, ms, plain_ms, library_ms, bytes_moved, ops, err,
+            device=0.0):
         t = totals[name]
         for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("library_ms", library_ms), ("bytes", bytes_moved),
-                       ("ops", ops)):
+                       ("library_ms", library_ms), ("device_ms", device),
+                       ("bytes", bytes_moved), ("ops", ops)):
             t[key] += count * v
         t["calls"] += count
         t["err"] = max(t["err"], err[0])
         t["rel"] = max(t["rel"], err[1])
 
     # ragged shapes first: M not a multiple of a block's rows, C not a
-    # divisor of the block's threads, fp32 and bf16
+    # divisor of the block's threads, fp32 and bf16; one row; fewer rows
+    # than the forward's grid has blocks, at the widest C
     for m, c, dtype in ((1_000_003, 64, torch.bfloat16),
                         (1003, 128, torch.float32),
-                        (513, 24, torch.float32)):
+                        (513, 24, torch.float32), (1, 8, torch.bfloat16),
+                        (300, 2048, torch.bfloat16)):
         errs = _check_bn(*_bn_case(m, c, dtype, seed=m), f"({m}, {c}) {dtype}")
         log(f"[kernels] BN sums ({m}, {c}) {dtype}: max |err| forward "
             f"{errs[0][0]:.3e} ({errs[0][1]:.2e} of the terms' magnitude), "
             f"backward {errs[1][0]:.3e} ({errs[1][1]:.2e})")
-    for dtype in (torch.bfloat16, torch.float32):
-        gen = torch.Generator(device="cuda").manual_seed(2)
-        x = torch.randn(3, 9, 11, 64, device="cuda", generator=gen)
-        x = (x * 2).round().div(2).clamp_min(0).to(dtype)  # tie plateaus
-        _check_pool(x, f"(3, 9, 11, 64) {dtype}")
-        log(f"[kernels] max-pool (3, 9, 11, 64) {dtype} with tie plateaus: "
+    # the backward's tiles: odd and even H and W, a single window row and
+    # column, C = 24 (one channel vector per tile), column tiles that do
+    # not divide the map
+    for shape in ((3, 9, 11, 64), (2, 2, 1, 24), (2, 65, 70, 256)):
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device="cuda").manual_seed(2)
+            x = torch.randn(shape, device="cuda", generator=gen)
+            x = (x * 2).round().div(2).clamp_min(0).to(dtype)  # tie plateaus
+            _check_pool(x, f"{shape} {dtype}")
+        log(f"[kernels] max-pool {shape} bf16 and fp32 with tie plateaus: "
             f"equal to the plain version")
 
     bn_calls = collections.Counter(calls["bn_sums"])
@@ -468,11 +458,15 @@ def phase_switched_kernels(device, calls, launches):
                cuda_ms(lambda: fused_bn.bwd_sums(dy, x, mean, rstd)),
                cuda_ms(lambda: torch.batch_norm_backward_reduce(
                    dy, x, mean, rstd, weight, True, True, True)))
+        # the forward's device-only time (profiler) beside the event pair,
+        # which counts the host where a call's host time exceeds the card's
+        fwd_device = device_ms(lambda: cfb.launch_channel_sums(x))[0]
         n = m * c
-        add("bn_sums", count, *fwd, 2 * n + 8 * c, 3 * n, errs[0])
+        add("bn_sums", count, *fwd, 2 * n + 8 * c, 3 * n, errs[0], fwd_device)
         add("bn_bwd_sums", count, *bwd, 4 * n + 16 * c, 6 * n, errs[1])
         log(f"[kernels] BN sums ({m}, {c}) bf16, {count} per pass: forward "
-            f"{fwd[0]:.4f} ms (plain {fwd[1]:.4f}, batch_norm_stats "
+            f"{fwd[0]:.4f} ms (device-only {fwd_device:.4f}, plain "
+            f"{fwd[1]:.4f}, batch_norm_stats "
             f"{fwd[2]:.4f}, bound {_bound(2 * n, 3 * n)[0]:.4f}), backward "
             f"{bwd[0]:.4f} ms (plain {bwd[1]:.4f}, batch_norm_backward_reduce "
             f"{bwd[2]:.4f}, bound {_bound(4 * n, 6 * n)[0]:.4f}); max |err| "
@@ -498,19 +492,21 @@ def phase_switched_kernels(device, calls, launches):
                cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                    dy_nchw, x_nchw, [3, 3], [2, 2], [1, 1], [1, 1], False,
                    lib_idx)))
+        bwd_device = device_ms(lambda: cmp.launch_pool_bwd(dy, idx, h, w))[0]
         n_in, n_out = x.numel(), y.numel()
         # bf16 in, bf16 y and uint8 index out; 8 compares per output
         add("maxpool_fwd", count, *fwd, 2 * n_in + 3 * n_out, 8 * n_out,
             (0.0, 0.0))
         # bf16 dy and uint8 index in, bf16 dx out; an add per routed dy
         add("maxpool_bwd", count, *bwd, 3 * n_out + 2 * n_in, n_out,
-            (0.0, 0.0))
+            (0.0, 0.0), bwd_device)
         log(f"[kernels] max-pool {stem} bf16 (post-ReLU, ties at 0), {count} "
             f"per pass: forward "
             f"{fwd[0]:.4f} ms (plain {fwd[1]:.4f}, max_pool2d with indices "
             f"{fwd[2]:.4f}, bound "
             f"{_bound(2 * n_in + 3 * n_out, 8 * n_out)[0]:.4f}), backward "
-            f"{bwd[0]:.4f} ms (plain {bwd[1]:.4f}, "
+            f"{bwd[0]:.4f} ms (device-only {bwd_device:.4f}, plain "
+            f"{bwd[1]:.4f}, "
             f"max_pool2d_with_indices_backward {bwd[2]:.4f}, bound "
             f"{_bound(3 * n_out + 2 * n_in, n_out)[0]:.4f}); equal to plain")
         del x, y, idx, dy, x_nchw, dy_nchw, lib_idx
@@ -554,8 +550,14 @@ def phase_switched_kernels(device, calls, launches):
             "bound_by": bound_by,
             "library_ms": t["library_ms"],
         })
+        device = ""
+        if t["device_ms"]:
+            # the profiler's device-only time of the same calls, summed
+            entries[-1]["device_ms"] = t["device_ms"]
+            device = (f" (device-only {t['device_ms']:.4f} ms, "
+                      f"{bound_ms / t['device_ms'] * 100:.1f}% of the bound)")
         log(f"[kernels] {name}, {t['calls']} calls per towers pass: "
-            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['ms']:.4f} ms{device}, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return entries
 
@@ -1264,27 +1266,27 @@ def phase_probe_kernels(launches):
             f"{row['bytes_ms']:.4f}; mean and var within {r[0]:.2e} and "
             f"{r[1]:.2e} of their scale")
         del x, x_nchw
-    # one launch with a last-block fold against the two launches of the
-    # BN-sums kernels (csrc/bn_sums.cu: the same reads, then a second
-    # kernel over the partials), at the probe's maps and at the towers'
-    # stage-4 maps, where a launch costs as much as the reads
-    one_vs_two = []
+    # the one-pass statistics against the BN-sums forward (csrc/bn_sums.cu:
+    # the same reads and a last-block fold, sums out), at the probe's maps
+    # and at the towers' stage-4 maps, where a launch costs as much as the
+    # reads
+    stats_vs_sums = []
     for shape in [*(g[:3] + g[4:] for g in proto_bn_stats.GEOMS.values()),
                   (896, 7, 7, 512), (224, 5, 20, 512)]:
         x = torch.randn(shape, device="cuda", generator=gen).to(
             torch.bfloat16)
-        one_vs_two.append((shape, cuda_ms(lambda: cbs.launch_bn_stats(x)),
-                           cuda_ms(lambda: cfb.launch_channel_sums(x))))
-        log(f"[probe-kernels] BN statistics {shape} bf16: one launch "
-            f"(bn_stats) {one_vs_two[-1][1]:.4f} ms, two launches (bn_sums) "
-            f"{one_vs_two[-1][2]:.4f} ms, bound "
+        stats_vs_sums.append((shape, cuda_ms(lambda: cbs.launch_bn_stats(x)),
+                              cuda_ms(lambda: cfb.launch_channel_sums(x))))
+        log(f"[probe-kernels] BN statistics {shape} bf16: bn_stats "
+            f"{stats_vs_sums[-1][1]:.4f} ms, bn_sums "
+            f"{stats_vs_sums[-1][2]:.4f} ms, bound "
             f"{2 * x.numel() / PEAK_BYTES_PER_S * 1e3:.4f} ms")
         del x
     entries.append(_entry(
         "bn_stats", "bn_stats.cu", "tools/proto_bn_stats.py:59 "
         "pallas_bn_stats", launches["bn_stats"], err, rows,
         max_rel_err_mean=rel[0], max_rel_err_var=rel[1],
-        one_vs_two_launch_ms=one_vs_two))
+        stats_vs_sums_ms=stats_vs_sums))
     torch.cuda.empty_cache()
 
     # copy: ragged (a 2-byte tail, uint8, an NCHW channels_last map), then

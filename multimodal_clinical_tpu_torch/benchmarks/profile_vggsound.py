@@ -25,7 +25,8 @@ WARMUP_STEPS, TRACED_STEPS, TOP = 2, 3, 15
 # kernel-name fragments -> family, first match wins
 FAMILIES = (
     ("log_spectrogram", "log-spectrogram kernel"),
-    ("sums_partial", "BN-sums kernels"), ("sums_finalize", "BN-sums kernels"),
+    ("sums_fwd", "BN-sums kernels"), ("sums_partial", "BN-sums kernels"),
+    ("sums_finalize", "BN-sums kernels"),
     ("pool_fwd_kernel", "max-pool kernels"),
     ("pool_bwd_kernel", "max-pool kernels"),
     ("conv", "convolution"), ("xmma", "convolution"), ("fprop", "convolution"),

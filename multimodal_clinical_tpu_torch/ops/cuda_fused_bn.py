@@ -6,7 +6,9 @@ and sum of squares) and ``launch_bwd_sums`` replaces ``_bwd_sums_pallas``
 (sum of dy and of dy * xhat).  Both take the JAX layout, channels last:
 a tensor (..., C) that is contiguous, i.e. the NHWC view of a
 ``channels_last`` feature map, read as (M, C).  Sums are fp32, from bf16
-or fp32 inputs; two launches on one input agree bit for bit.  The kernel
+or fp32 inputs; two launches on one input agree bit for bit.  The forward
+is one launch: its partial sums and ticket counters are scratch kept per
+(device, stream), so a call allocates only its (2, C) output.  The kernel
 source says what bounds it and how its design answers.  The plain
 versions are ``ops/fused_bn.channel_sums`` and ``bwd_sums``.
 """
@@ -15,13 +17,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from ..kernels import build
 
 DTYPES = (torch.bfloat16, torch.float32)
+# The forward's grid (csrc/bn_sums.cu): (row blocks, channel groups of
+# GROUP_C); a block of THREADS threads, each keeping 256 bytes of rows in
+# flight; BLOCKS_PER_SM blocks per SM in all, fewer where M is short.
+GROUP_C, THREADS, BLOCKS_PER_SM, MAX_C = 64, 256, 2, 2048
+# the forward's scratch of each (device, stream): the blocks' partial sums
+# (2 * GROUP_C floats a block, as many blocks as the largest grid on that
+# device), the ticket counters (one per group, zeroed once and set back to
+# 0 by the last blocks of every launch), and the device's SM count
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor, int]] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -31,8 +42,8 @@ def _lib() -> ctypes.CDLL:
     lib.mmct_bn_sums_blocks.restype = ctypes.c_int
     lib.mmct_bn_sums.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,  # x, bf16, M, C
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,              # partial, blocks, out
-        ctypes.c_void_p,                                             # stream
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,               # row blocks, scratch, floats
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,           # counters, out, stream
     ]
     lib.mmct_bn_sums.restype = ctypes.c_int
     lib.mmct_bn_bwd_sums.argtypes = [
@@ -78,22 +89,60 @@ def _raise_on(lib, err: int, name: str) -> None:
                            + lib.mmct_cuda_error_string(err).decode())
 
 
+def fwd_row_blocks(m: int, c: int, sms: int, bf16: bool = True) -> int:
+    """Row blocks per channel group of the forward's grid on a card with
+    ``sms`` SMs: BLOCKS_PER_SM * sms blocks in all (at least one per
+    group), but no more than give each thread one full step of loads (16
+    rows of bf16, 8 of fp32)."""
+    groups = -(-c // GROUP_C)
+    lanes = THREADS // (min(c, GROUP_C) // 8)
+    want = -(-m // (lanes * (16 if bf16 else 8)))
+    return min(want, max(sms * BLOCKS_PER_SM // groups, 1))
+
+
+def fwd_slabs(m: int, row_blocks: int):
+    """[first, end) rows of each row block of the forward, in block order:
+    ceil(m / row_blocks) rows each, the last ones short or empty."""
+    per = -(-m // row_blocks)
+    return [(min(i * per, m), min(i * per + per, m))
+            for i in range(row_blocks)]
+
+
+def _scratch(device: torch.device,
+             stream: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The forward's (partial sums, counters, SM count) of ``stream``, made
+    on first use; ``device`` is the current device."""
+    key = (device.index, stream)
+    if key not in _SCRATCH:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        groups = MAX_C // GROUP_C
+        blocks = max(sms * BLOCKS_PER_SM, groups)
+        _SCRATCH[key] = (
+            torch.empty(blocks * 2 * GROUP_C, dtype=torch.float32,
+                        device=device),
+            torch.zeros(groups, dtype=torch.int32, device=device), sms)
+    return _SCRATCH[key]
+
+
 def launch_channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum x, sum x^2) per channel, fp32 (C,) each, of a contiguous
-    (..., C) CUDA tensor; raises on anything the kernel does not take."""
+    (..., C) CUDA tensor, in one kernel launch; raises on anything the
+    kernel does not take."""
     m, c = _check_feature_map(x, "x")
     lib = _lib()
-    blocks = _blocks(lib, m, c)
-    partial = torch.empty(blocks, 2, c, dtype=torch.float32, device=x.device)
+    _blocks(lib, m, c)  # raises on a shape the kernels do not take
     out = torch.empty(2, c, dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mmct_bn_sums(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                               m, c, partial.data_ptr(), blocks,
-                               out.data_ptr(), stream)
+        scratch, counters, sms = _scratch(x.device, stream)
+        err = lib.mmct_bn_sums(x.data_ptr(), int(bf16), m, c,
+                               fwd_row_blocks(m, c, sms, bf16),
+                               scratch.data_ptr(), scratch.numel(),
+                               counters.data_ptr(), out.data_ptr(), stream)
     _raise_on(lib, err, "bn_sums")
     launch_channel_sums.launches += 1
-    return out[0], out[1]
+    return out.unbind(0)
 
 
 launch_channel_sums.launches = 0

@@ -378,3 +378,113 @@ def test_conv3x3_kernel_refuses_what_it_does_not_take():
         cuda_conv3x3.launch_conv3x3(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match="one card|CUDA"):
         cuda_conv3x3.launch_conv3x3(x, w.cpu())
+
+
+# the one-launch BN-sums forward at its edges: one row, fewer rows than
+# the grid has blocks, C = 2048 (32 channel groups), C = 24, and a map
+# long enough for every block of the grid
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c", [(1, 64), (1, 2048), (300, 2048), (37, 24),
+                                 (2_000_001, 64), (100_003, 512)])
+def test_bn_sums_forward_edges_match_plain(m, c, dtype):
+    rng = np.random.default_rng(m + c)
+    x = _card_tensor(rng, (m, c), dtype, loc=0.5)
+    got = cuda_fused_bn.launch_channel_sums(x)
+    torch.cuda.synchronize()
+    x32 = x.float()
+    _assert_sums_close(got, fused_bn.channel_sums(x),
+                       (x32.abs().sum(0), (x32 * x32).sum(0)))
+    again = cuda_fused_bn.launch_channel_sums(x)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bn_sums_forward_is_one_launch():
+    """One kernel per call (the last block folds the partial sums), and no
+    allocation on the card but the (2, C) output."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(43_904, 512, device="cuda", dtype=torch.bfloat16)
+    cuda_fused_bn.launch_channel_sums(x)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = cuda_fused_bn.launch_channel_sums(x)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert torch.cuda.memory_allocated() - before <= 2 * 512 * 4 + 512
+    del out
+
+
+# one pass of the switched towers' BN-sums forward calls, (M, C) and calls
+BN_TOWER_CALLS = [((11_239_424, 64), 1), ((2_809_856, 64), 4),
+                  ((702_464, 128), 5), ((175_616, 256), 5),
+                  ((43_904, 512), 5), ((4_557_280, 64), 1),
+                  ((1_160_544, 64), 4), ((300_832, 128), 5),
+                  ((80_640, 256), 5), ((22_400, 512), 5)]
+
+
+def test_bn_sums_forward_towers_calls_back_to_back():
+    """The 40 calls of a towers pass queued on one stream without a
+    synchronisation: each right, and each repeat of a shape the same bits
+    (the scratch and counters are reused call after call)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    inputs = [torch.randn(shape, device="cuda", dtype=torch.bfloat16,
+                          generator=gen).add_(0.5)
+              for shape, _ in BN_TOWER_CALLS]
+    outs = [[cuda_fused_bn.launch_channel_sums(x) for _ in range(count)]
+            for x, (_, count) in zip(inputs, BN_TOWER_CALLS)]
+    torch.cuda.synchronize()
+    assert sum(len(o) for o in outs) == 40
+    for x, calls in zip(inputs, outs):
+        x32 = x.float()
+        _assert_sums_close(calls[0], fused_bn.channel_sums(x),
+                           (x32.abs().sum(0), (x32 * x32).sum(0)))
+        del x32
+        for again in calls[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(calls[0], again))
+
+
+def test_bn_sums_forward_on_two_streams():
+    """Calls in flight at once on two streams, each with its own scratch
+    and counters: both right."""
+    rng = np.random.default_rng(3)
+    xs = [_card_tensor(rng, (1_000_003, 64), torch.bfloat16, loc=0.5),
+          _card_tensor(rng, (200_001, 256), torch.bfloat16, loc=-1.0)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        for x, stream in zip(xs, streams):
+            with torch.cuda.stream(stream):
+                outs.append(cuda_fused_bn.launch_channel_sums(x))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        x = xs[i % 2]
+        x32 = x.float()
+        _assert_sums_close(got, fused_bn.channel_sums(x),
+                           (x32.abs().sum(0), (x32 * x32).sum(0)))
+        assert all(torch.equal(a, b) for a, b in zip(got, outs[i % 2]))
+    keys = {(0, s.cuda_stream) for s in streams}
+    assert keys <= set(cuda_fused_bn._SCRATCH)
+
+
+# the max-pool backward's tiles: H or W of 1 or 2, odd and even H and W,
+# C = 8 and 24 (one channel vector per tile), 256 (four 64-channel slices),
+# and more than 256 windows in a row (two column tiles)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 1, 1, 8), (2, 2, 1, 24),
+                                   (1, 1, 2, 256), (3, 66, 70, 8),
+                                   (2, 65, 313, 24), (1, 17, 9, 256),
+                                   (2, 9, 600, 8), (2, 65, 313, 64)])
+def test_pool_backward_tiles_match_plain(shape, dtype):
+    rng = np.random.default_rng(sum(shape))
+    x = np.maximum(np.round(rng.normal(size=shape) * 2) / 2, 0)
+    x = torch.from_numpy(x.astype(np.float32)).to("cuda", dtype)
+    _, idx = cuda_maxpool.launch_pool_fwd(x)
+    dy = _card_tensor(rng, idx.shape, dtype)
+    dx = cuda_maxpool.launch_pool_bwd(dy, idx, *shape[1:3])
+    torch.cuda.synchronize()
+    assert torch.equal(dx, maxpool.pool_bwd(dy, idx, *shape[1:3]))
+    assert torch.equal(dx, cuda_maxpool.launch_pool_bwd(dy, idx, *shape[1:3]))

@@ -250,3 +250,72 @@ def test_expanded_gradient_reaches_the_sums_contiguous(monkeypatch):
     assert contiguous == [True, True]
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _fold_mirror(x2d, row_blocks):
+    """The CUDA forward's fixed fold order (csrc/bn_sums.cu) in plain fp32
+    torch: per channel group of 64, thread lane l of a row block adds its
+    slab's rows l, l + lanes, ... in order; the block adds its lanes in
+    order; the group's last block adds the blocks' partials, warp w the
+    blocks w, w + 8, ..., then the 8 warps' runs in order."""
+    m, c = x2d.shape
+    x = x2d.float()
+    out = torch.empty(2, c)
+    for g0 in range(0, c, cuda_fused_bn.GROUP_C):
+        width = min(cuda_fused_bn.GROUP_C, c - g0)
+        lanes = cuda_fused_bn.THREADS // (width // 8)
+        partials = []
+        for r0, r1 in cuda_fused_bn.fwd_slabs(m, row_blocks):
+            per_lane = torch.zeros(2, lanes, width)
+            for k in range(r0, r1, lanes):
+                rows = x[k:min(k + lanes, r1), g0:g0 + width]
+                per_lane[0, :len(rows)] += rows
+                per_lane[1, :len(rows)] += rows * rows
+            block = torch.zeros(2, width)
+            for lane in range(lanes):
+                block += per_lane[:, lane]
+            partials.append(block)
+        total = torch.zeros(2, width)
+        for warp in range(8):
+            run = torch.zeros(2, width)
+            for blk in range(warp, len(partials), 8):
+                run += partials[blk]
+            total += run
+        out[:, g0:g0 + width] = total
+    return out[0], out[1]
+
+
+# (M, C, SMs): two row blocks; eight per group over two groups (a short
+# last slab); sixteen, so that each warp of the fold adds two; C = 24 (85
+# lanes of a 256-thread block); C = 2048 (32 groups of one row block)
+@pytest.mark.parametrize("m,c,sms", [(1003, 64, 4), (4099, 128, 8),
+                                     (20000, 64, 8), (517, 24, 132),
+                                     (300, 2048, 132)])
+def test_forward_fold_order_matches_pallas_interpret(m, c, sms):
+    """The forward kernel's slabs and fold order, on the grid the wrapper
+    gives a card with ``sms`` SMs, against ``channel_sums`` and
+    ``_channel_sums_pallas`` (interpret mode)."""
+    row_blocks = cuda_fused_bn.fwd_row_blocks(m, c, sms)
+    slabs = cuda_fused_bn.fwd_slabs(m, row_blocks)
+    assert slabs[0][0] == 0 and slabs[-1][1] == m
+    assert all(a[1] == b[0] for a, b in zip(slabs, slabs[1:]))
+    x = np.random.default_rng(m).normal(0.5, 1.0, size=(m, c)).astype(
+        np.float32)
+    got = _fold_mirror(torch.from_numpy(x), row_blocks)
+    magnitude = (np.abs(x).sum(0), (x * x).sum(0))
+    for want in (fused_bn.channel_sums(torch.from_numpy(x)),
+                 _channel_sums_pallas(jnp.asarray(x), interpret=True)):
+        for g, w, mag in zip(got, want, magnitude):
+            assert np.all(np.abs(g.numpy() - np.asarray(w)) <= SUM_RTOL * mag)
+
+
+def test_forward_grid_fits_the_card():
+    """Two blocks per SM in all, at least one row block per channel group,
+    and no more row blocks than give each thread 16 bf16 rows (8 fp32)."""
+    assert cuda_fused_bn.fwd_row_blocks(11239424, 64, 132) == 264
+    assert cuda_fused_bn.fwd_row_blocks(43904, 512, 132) == 33
+    assert cuda_fused_bn.fwd_row_blocks(300, 2048, 132) == 1
+    assert cuda_fused_bn.fwd_row_blocks(1, 8, 132) == 1
+    # 32 lanes x 16 rows of bf16 (8 of fp32) per step at C = 64
+    assert cuda_fused_bn.fwd_row_blocks(512 * 3, 64, 132) == 3
+    assert cuda_fused_bn.fwd_row_blocks(512 * 3, 64, 132, bf16=False) == 6

@@ -136,3 +136,95 @@ def test_expanded_gradient_reaches_the_backward_contiguous(monkeypatch):
     y.backward(torch.ones_like(y))
     assert contiguous == [True, True]
     torch.testing.assert_close(x.grad, x_ones.grad, rtol=0, atol=0)
+
+
+# The CUDA backward's routing (csrc/maxpool.cu), mirrored in plain torch:
+# window (i, j) owns dx rows 2i, 2i + 1 and columns 2j, 2j + 1 and reads
+# only windows (i, j), (i, j + 1), (i + 1, j), (i + 1, j + 1); a block stages
+# a tile of ``rows`` window rows x ``tw`` windows x ``cv`` channel vectors
+# with a one-row, one-column halo, windows outside the map as index 9.
+
+
+def _kernel_tiling(c, wo, dtype):
+    """(rows, tw, cv) of the kernel's tiles (``bwd_grid``): cv the largest
+    power of two up to 8 dividing C / 8, tw the even split of Wo into
+    column tiles of at most 256 / cv windows, 4 window rows (bf16) or 2."""
+    vecs, cv = c // 8, 1
+    while cv < 8 and vecs % (2 * cv) == 0:
+        cv *= 2
+    col_tiles = -(-wo // (256 // cv))
+    return (4 if dtype == torch.bfloat16 else 2), -(-wo // col_tiles), cv
+
+
+def _quad_tiles_bwd(dy, idx, h, w, rows, tw, cv):
+    b, ho, wo, c = dy.shape
+    d = dy.float()
+    dx = torch.full((b, 2 * ho, 2 * wo, c), float("nan"))
+    for oh0 in range(0, ho, rows):
+        for c0 in range(0, c, 8 * cv):
+            for ow0 in range(0, wo, tw):
+                ch = slice(c0, c0 + 8 * cv)
+                rr, cc = min(rows + 1, ho - oh0), min(tw + 1, wo - ow0)
+                td = torch.zeros(b, rows + 1, tw + 1, 8 * cv)
+                ti = torch.full(td.shape, 9, dtype=torch.uint8)
+                td[:, :rr, :cc] = d[:, oh0:oh0 + rr, ow0:ow0 + cc, ch]
+                ti[:, :rr, :cc] = idx[:, oh0:oh0 + rr, ow0:ow0 + cc, ch]
+
+                def tap(t, r, s):
+                    v = td[:, r:r + rows, s:s + tw]
+                    return torch.where(ti[:, r:r + rows, s:s + tw] == t, v,
+                                       0.0)
+
+                quads = {(0, 0): tap(4, 0, 0),
+                         (0, 1): tap(5, 0, 0) + tap(3, 0, 1),
+                         (1, 0): tap(7, 0, 0) + tap(1, 1, 0),
+                         (1, 1): tap(8, 0, 0) + tap(6, 0, 1) + tap(2, 1, 0)
+                         + tap(0, 1, 1)}
+                nr, nc = min(rows, ho - oh0), min(tw, wo - ow0)
+                for (p, q), v in quads.items():
+                    dx[:, 2 * oh0 + p:2 * (oh0 + nr):2,
+                       2 * ow0 + q:2 * (ow0 + nc):2, ch] = v[:, :nr, :nc]
+    # quad rows and columns past an odd H or W are not written
+    return dx[:, :h, :w].to(dy.dtype)
+
+
+# even and odd H and W, H or W of 1 or 2, C = 24 (one vector per tile), and
+# tiles that do not divide the map
+TILE_SHAPES = [(2, 8, 8, 8), (3, 9, 11, 16), (1, 65, 13, 8), (2, 1, 2, 8),
+               (2, 2, 1, 24), (1, 20, 33, 64)]
+
+
+def _pool_case(shape, dtype, seed=42):
+    xj, ct = _inputs(shape, True, dtype, seed)
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    x, dy = _to_torch(xj).to(tdtype), _to_torch(ct).to(tdtype)
+    return xj, ct, dy, maxpool.pool_fwd(x)[1]
+
+
+@pytest.mark.parametrize("tiling", ["kernel", "ragged"])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+def test_quad_tile_routing_equals_pool_bwd(shape, dtype, tiling):
+    """The kernel's tile-by-tile routing gives ``pool_bwd``'s dx bit for
+    bit, with its own tiles and with 3-row, 5-window, one-vector tiles."""
+    _, _, dy, idx = _pool_case(shape, dtype)
+    b, h, w, c = shape
+    tiles = (_kernel_tiling(c, dy.shape[2], dy.dtype) if tiling == "kernel"
+             else (3, 5, 1))
+    got = _quad_tiles_bwd(dy, idx, h, w, *tiles)
+    want = maxpool.pool_bwd(dy, idx, h, w)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,dtype", [((3, 9, 11, 16), jnp.float32),
+                                         ((1, 20, 33, 64), jnp.bfloat16)])
+def test_quad_tile_routing_equals_pallas_interpret(shape, dtype):
+    """... and ``_pool_bwd_pallas``'s (``jax.vjp`` of the Pallas op, in
+    interpret mode on the CPU) bit for bit."""
+    xj, ct, dy, idx = _pool_case(shape, dtype)
+    _, vjp = jax.vjp(max_pool_3x3_s2_pallas, xj)
+    (want,) = vjp(ct)
+    got = _quad_tiles_bwd(dy, idx, *shape[1:3],
+                          *_kernel_tiling(shape[3], dy.shape[2], dy.dtype))
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
