@@ -44,7 +44,19 @@ Phases, each of which raises on failure:
    versions at every geometry of phase 9 and at ragged shapes, timed beside
    their bound, plain version and library call, with each one's share of
    the bound (for the conv, each geometry's share of the bf16 peak beside
-   cuDNN's).
+   cuDNN's);
+11. CLI: ``python3 -m multimodal_clinical_tpu_torch --dir vggsound`` as a
+   subprocess at the config's full geometry (batch 224, 309 classes, two
+   width-64 ResNet18 towers in bf16) on the synthetic twin, two epochs;
+   its printed summary, ``metrics.jsonl`` rows, committed checkpoint
+   directory and ``meta.json`` are checked, then ``--resume`` with one more
+   epoch must train exactly one more;
+12. loop: ``engine.run.run_benchmark`` in process on a waveform dataset
+   (896 train, 224 val and 224 test rows of 80 000 samples and four uint8
+   frames) through the ``Loader`` with 4 gather threads, two epochs; the
+   log-STFT kernel must launch once per train, val and test step, and the
+   epoch-2 train steps' wall time is printed beside the fixture's step of
+   phase 7, whose batch is already on the card.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; launches made to compare or time a kernel do not count.
@@ -56,13 +68,19 @@ result.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import ast
 import collections
 import contextlib
 import json
 import math
+import os
+import shutil
 import statistics
+import subprocess
 import sys
 import time
+from pathlib import Path
+from types import SimpleNamespace
 from typing import Tuple
 
 import numpy as np
@@ -871,6 +889,207 @@ def phase_main_path(device, card: str, kernels):
             entry["launches"] = launches["log_spectrogram"]
         elif entry["name"].startswith("maxpool"):
             entry["launches"] = switched[entry["name"]]
+    return default_ms
+
+
+# phases 11-12 write their runs here (gitignored), and remove them after
+WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+RUN_NAME = "vggsound_cls309_jprobas_seeds"  # configs/vggsound.yaml group
+
+
+def _cli(args, timeout: int = 600) -> str:
+    """``python3 -m multimodal_clinical_tpu_torch --dir vggsound`` with
+    ``args`` from the repository root; raises unless it exits 0.  Returns
+    its standard output."""
+    cmd = [sys.executable, "-m", "multimodal_clinical_tpu_torch",
+           "--dir", "vggsound", *args]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout, cwd=Path(__file__).resolve().parent)
+    tail = "\n".join(proc.stdout.strip().splitlines()[-6:])
+    log(f"[cli] {' '.join(cmd[1:])}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t:.1f} s\n{tail}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed:\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def _epoch_rows(run_dir: Path):
+    rows = [json.loads(line) for line in
+            (run_dir / "metrics.jsonl").read_text().splitlines()]
+    return [r for r in rows if "epoch" in r]
+
+
+def phase_cli():
+    """The port's CLI at the config's full geometry on the synthetic twin,
+    then ``--resume`` with one more epoch."""
+    work = WORK_DIR / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        base = ["--set", f"ckpt_dir={work}", "--set", f"data_path={work}/none"]
+        out = _cli(base + ["--set", "num_epochs=2"])
+        summary = ast.literal_eval(out.strip().splitlines()[-1])
+        if not math.isfinite(summary.get("test_epoch/test_avg_acc", math.nan)):
+            raise AssertionError(f"no test_epoch/test_avg_acc: {summary}")
+        run_dir, ckpt = work / RUN_NAME, work / RUN_NAME / "ckpt"
+        rows = _epoch_rows(run_dir)
+        train_val = [r for r in rows if r["epoch"] >= 0]
+        test = [r for r in rows if r["epoch"] == -1]
+        if ([r["epoch"] for r in train_val] != [0, 1] or not all(
+                "train_epoch/train_avg_loss" in r
+                and "val_epoch/val_avg_acc" in r for r in train_val)
+                or len(test) != 1 or "test_epoch/test_avg_acc" not in test[0]):
+            raise AssertionError(f"metrics.jsonl epoch rows: {rows}")
+        names = sorted(os.listdir(ckpt))
+        if (any(n.endswith(".pending") for n in names)
+                or names != ["best", "last-1", "last-2", "meta.json"]
+                or not all((ckpt / n / "state.pt").is_file()
+                           for n in names if n != "meta.json")):
+            raise AssertionError(f"checkpoint directory: {names}")
+        meta = json.loads((ckpt / "meta.json").read_text())
+        if meta["epochs_done"] != 2 or meta["meta_step"] != 2:
+            raise AssertionError(f"meta.json after two epochs: {meta}")
+        out = _cli(base + ["--set", "num_epochs=3", "--resume"])
+        if "[trainer] resumed from step 2" not in out:
+            raise AssertionError("the resumed run did not start at step 2")
+        meta = json.loads((ckpt / "meta.json").read_text())
+        steps = [(r["epoch"], r["_step"]) for r in _epoch_rows(run_dir)
+                 if r["epoch"] >= 0]
+        if meta["epochs_done"] != 3 or steps != [(0, 1), (1, 2), (2, 3)]:
+            raise AssertionError(f"--resume: meta {meta}, epoch rows "
+                                 f"(epoch, step) {steps}")
+        log(f"[cli] two epochs, then --resume trained one more: epoch rows "
+            f"(epoch, step) {steps}; test_avg_acc "
+            f"{summary['test_epoch/test_avg_acc']:.4f}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _waveform_bundle(n_train: int, n_eval: int):
+    """The waveform layout of the JAX package's
+    ``tests/test_benchmarks_e2e.py::test_vggsound_waveform_to_spectrogram_path``
+    at the main path's geometry, from numpy's seed-0 generator."""
+    from multimodal_clinical_tpu_torch.data.core import ArrayDataset
+    from multimodal_clinical_tpu_torch.engine.run import DataBundle
+
+    class WaveDataset(ArrayDataset):
+        def gather(self, indices):
+            out = super().gather(indices)
+            out["x1_waveform"] = out.pop("x1")
+            return out
+
+    rng = np.random.default_rng(0)
+
+    def make(n):
+        wave = rng.normal(scale=0.1, size=(n, 80000)).astype(np.float32)
+        frames = rng.integers(0, 256, size=(n, 4, 224, 224, 3),
+                              dtype=np.uint8)
+        return WaveDataset([wave, frames],
+                           rng.integers(0, CLASSES, n).astype(np.int32))
+
+    return DataBundle(make(n_train), make(n_eval), make(n_eval),
+                      train_sampler="weighted", val_sampler="weighted")
+
+
+def phase_loop(device, card: str, fixture_ms: float, kernels):
+    """``run_benchmark`` on waveform batches through the Loader: the
+    log-STFT kernel in the real loop.  Each train step is followed by a
+    synchronise, so the interval between two steps' ends is the step's wall
+    time through the loader, comparable with the fixture's step."""
+    from multimodal_clinical_tpu_torch.benchmarks import vggsound
+    from multimodal_clinical_tpu_torch.config import load_config
+    from multimodal_clinical_tpu_torch.engine import run
+    from multimodal_clinical_tpu_torch.ops import cuda_spectrogram as cs
+
+    epochs, workers = 2, 4
+    work = WORK_DIR / "loop"
+    shutil.rmtree(work, ignore_errors=True)
+    t = time.perf_counter()
+    bundle = _waveform_bundle(4 * BATCH, BATCH)
+    log(f"[loop] waveform data ({len(bundle.train)} + {len(bundle.val)} + "
+        f"{len(bundle.test)} rows) made in {time.perf_counter() - t:.1f} s")
+    args = load_config("vggsound", overrides=dict(
+        num_epochs=epochs, loader_workers=workers, ckpt_dir=str(work),
+        data_path=str(work / "none")))
+    module = SimpleNamespace(get_data=lambda _: bundle,
+                             get_model_spec=vggsound.get_model_spec)
+    ends, seen = [], {}
+
+    class TimedTrainer(run.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["trainer"] = self
+            step = self.train_step
+
+            def timed(state, batch):
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                ends.append((self.train_loader._epoch, time.perf_counter()))
+                return state, metrics
+
+            self.train_step = timed
+
+    trainer_cls, run.Trainer = run.Trainer, TimedTrainer
+    cs.launch_log_spectrogram.launches = 0
+    try:
+        t = time.perf_counter()
+        summary = run.run_benchmark(args, module, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        run.Trainer = trainer_cls
+        shutil.rmtree(work, ignore_errors=True)
+    launches = cs.launch_log_spectrogram.launches
+    trainer = seen["trainer"]
+    steps = {split: len(getattr(trainer, f"{split}_loader"))
+             for split in ("train", "val", "test")}
+    expected = epochs * (steps["train"] + steps["val"]) + steps["test"]
+    if launches != expected:
+        raise AssertionError(
+            f"[loop] log_spectrogram launched {launches} times, expected "
+            f"{expected} ({epochs} epochs of {steps})")
+    losses = [h["train_epoch/train_avg_loss"] for h in trainer.history]
+    if not all(math.isfinite(x) for x in losses) or not math.isfinite(
+            summary["test_epoch/test_avg_loss"]):
+        raise AssertionError(f"non-finite losses: {losses}, {summary}")
+    last = [t for e, t in ends if e == epochs - 1]
+    if len(ends) != epochs * steps["train"] or len(last) < 2:
+        raise AssertionError(f"timed {len(ends)} train steps")
+    step_ms = [(b - a) * 1e3 for a, b in zip(last, last[1:])]
+    median = statistics.median(step_ms)
+    epoch_s = trainer.history[-1]["train_epoch/epoch_time_sec"]
+    log(f"[loop] {card}: {launches} log_spectrogram launches ({epochs} x "
+        f"{steps['train']} train, {epochs} x {steps['val']} val, "
+        f"{steps['test']} test steps); train losses {losses}; test loss "
+        f"{summary['test_epoch/test_avg_loss']:.5f}; run {wall:.1f} s")
+    log(f"[loop] {card}: epoch-2 train step through the Loader ({workers} "
+        f"gather threads, prefetch 2), median {median:.2f} ms over "
+        f"{len(step_ms)} steps (each {', '.join(f'{m:.2f}' for m in step_ms)}"
+        f"); the whole epoch {epoch_s * 1e3 / steps['train']:.2f} ms a step "
+        f"with its start; the fixture's step with its batch on the card "
+        f"{fixture_ms:.2f} ms (phase 7); host feed adds "
+        f"{median - fixture_ms:.2f} ms a step")
+    # the feed alone, no step: the producer's host work per batch (gather
+    # on the threads, pad, cast), then with the pinning and the copy
+    feed = trainer.train_loader
+    feed.set_epoch(epochs - 1)
+    t = time.perf_counter()
+    n = sum(1 for _ in feed._host_batches())
+    host_ms = (time.perf_counter() - t) * 1e3 / n
+    feed.set_epoch(epochs - 1)
+    t = time.perf_counter()
+    n = sum(1 for _ in feed)
+    torch.cuda.synchronize()
+    feed_ms = (time.perf_counter() - t) * 1e3 / n
+    log(f"[loop] {card}: the Loader alone, {n} batches of {BATCH}: host "
+        f"batch (gather, pad, cast) {host_ms:.2f} ms, with pinning and the "
+        f"copy to the card {feed_ms:.2f} ms a batch")
+    for entry in kernels:
+        if entry["name"] == "log_spectrogram":
+            # phase 7's count beside this slice's path through the loop
+            entry["launches_fixture"] = entry["launches"]
+            entry["launches"] = launches
 
 
 def phase_switched_towers(device, card: str):
@@ -1349,7 +1568,9 @@ def main() -> int:
     kernels += phase_switched_kernels(device,
                                       *phase_switched_towers(device, card))
     phase_card_against_cpu(device)
-    phase_main_path(device, card, kernels)
+    fixture_ms = phase_main_path(device, card, kernels)
+    phase_cli()
+    phase_loop(device, card, fixture_ms, kernels)
     kernels += phase_probe_kernels(phase_probes(card))
     missing = [e["name"] for e in kernels if not e["launches"]]
     if missing:

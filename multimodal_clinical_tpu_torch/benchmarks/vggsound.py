@@ -1,14 +1,21 @@
-"""VGGSound device preprocessing and model spec (port of
-``multimodal_clinical_tpu/benchmarks/vggsound.py:391-443``; the data
-adapters come with ROADMAP.md queue A, item 8)."""
+"""VGGSound: data, device preprocessing and model spec (port of
+``multimodal_clinical_tpu/benchmarks/vggsound.py:337-443``).
+
+``get_data`` serves the synthetic twin (64/32/32 rows, the spectrogram
+``x1`` and four frames of ``x2`` at the reference's geometry); the disk
+dataset (wav, JPEG and mp4 under ``data_path``) comes with ROADMAP.md
+queue A, item 8b."""
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..data.imageops import normalize_frames_device
+from ..data.synthetic import make_synthetic_splits
+from ..engine.run import DataBundle
 from ..engine.spec import ModelSpec, resolve_dtype
 from ..models.zoo import CremadFusionNet
 from ..ops.cuda_spectrogram import log_spectrogram
@@ -19,6 +26,25 @@ HOP = 128
 # torchaudio masks of vggsound/get_data.py:18-45
 SPEC_AUGMENT = dict(freq_mask_param=30, time_mask_param=120,
                     num_freq_masks=2, num_time_masks=3)
+
+
+def get_data(args) -> DataBundle:
+    data_dir = getattr(args, "data_path", "data/vggsound/")
+    csv_path = os.path.join(data_dir, "vggsound.csv")
+    if os.path.exists(csv_path):
+        raise NotImplementedError(
+            f"{csv_path}: the VGGSound disk dataset is not ported yet "
+            "(ROADMAP.md queue A, item 8b)")
+    print(f"[vggsound] real data not found under {data_dir!r}; "
+          "using synthetic twin", flush=True)
+    train, val, test = make_synthetic_splits(
+        "vggsound", int(args.num_classes), int(getattr(args, "seed", 0)),
+        n_train=64, n_val=32, n_test=32,
+    )
+    # balanced samplers on train AND val (vggsound/run_training.py:62-80;
+    # val aliases the test set there); test iteration is sequential
+    return DataBundle(train, val, test, train_sampler="weighted",
+                      val_sampler="weighted", synthetic=True)
 
 
 def device_preprocess(batch: Dict[str, torch.Tensor],
@@ -50,5 +76,11 @@ def get_model_spec(args, n_train: int) -> Tuple[ModelSpec, Dict]:
     module = CremadFusionNet(num_classes=int(args.num_classes),
                              dtype=resolve_dtype(args))
     spec = ModelSpec(module=module, contract="jprobas", sched_step_size=30,
-                     sched_gamma=0.5, device_preprocess=device_preprocess)
+                     sched_gamma=0.5, device_preprocess=device_preprocess,
+                     # legacy runner: no ModelCheckpoint, test on the
+                     # final-epoch weights (vggsound/run_training.py:106-130)
+                     test_restore_best=False,
+                     # flat epoch-end names (vggsound/ensemble_model.py:
+                     # 171-174)
+                     legacy_metric_aliases=True)
     return spec, {}

@@ -56,3 +56,14 @@ def fuse_probas(logits_list: Sequence[torch.Tensor]) -> torch.Tensor:
     probs = torch.stack([F.softmax(l.float(), dim=-1)
                          for l in logits_list]).mean(dim=0)
     return torch.log(probs + LOGPROB_EPS)
+
+
+def offset_correct(logits_nmc: torch.Tensor) -> torch.Tensor:
+    """Full-epoch unimodal offset correction (BaseModel.py:174-197).
+
+    logits_nmc: (N, M, C).  offset = mean-over-modalities of per-modality
+    mean logits, minus the per-modality mean; added to every sample.
+    """
+    m_out = logits_nmc.mean(dim=0)                             # (M, C)
+    offset = m_out.mean(dim=0, keepdim=True) - m_out           # (M, C)
+    return logits_nmc + offset

@@ -1,5 +1,6 @@
 """ModelSpec — the declarative description of one model variant (port of
-``multimodal_clinical_tpu/engine/spec.py``, the fields slice 1 reads)."""
+``multimodal_clinical_tpu/engine/spec.py``, the fields the jprobas step and
+the trainer read)."""
 
 from __future__ import annotations
 
@@ -36,6 +37,14 @@ class ModelSpec:
     # StepLR step_size (epochs) / gamma per model file
     sched_step_size: int = 70
     sched_gamma: float = 0.1
+    # new-style dirs reload the top-1 val_avg_acc checkpoint before the
+    # test epoch (utils/run_trainer.py:27-33,65); the legacy standalone
+    # runners test the FINAL-epoch weights (vggsound/run_training.py:106-130)
+    test_restore_best: bool = True
+    # legacy standalone dirs also log FLAT epoch-end metric names
+    # (val_loss / x{i}_val_acc / avg_test_acc ..., avmnist/joint_model.py:
+    # 265-268) beside the val_epoch/* namespace
+    legacy_metric_aliases: bool = False
     # (batch, generator, train) -> batch; runs inside the step
     device_preprocess: Optional[Callable] = None
 

@@ -60,6 +60,9 @@ class TrainState:
     ema: torch.Tensor          # (M, C) fp32 EMA of batch-mean logits
     seed: int                  # seeds the per-step generator
     lr_schedule: Callable[[int], float]
+    # Lightning's LearningRateMonitor names the LR stream after the torch
+    # optimizer class (utils/run_trainer.py:20)
+    lr_metric_name: str = "lr-SGD"
 
     def step_generator(self) -> torch.Generator:
         return step_generator(self.seed, self.step)

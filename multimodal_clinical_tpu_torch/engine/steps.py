@@ -90,3 +90,23 @@ def make_eval_step(spec: ModelSpec) -> Callable[[TrainState, Batch], Dict]:
         }
 
     return eval_step
+
+
+def make_scan_train_step(spec: ModelSpec, k: int):
+    """K optimizer steps per call (the JAX package's ``lax.scan`` device
+    loop, ``make_scan_train_step``): exactly K sequential train steps, the
+    same updates, EMA and per-step generators.  Metrics come back stacked
+    with a leading (K,) axis and the step counter advances by K."""
+    train_step = make_train_step(spec)
+
+    def multi(state: TrainState, *batches: Batch):
+        if len(batches) != k:
+            raise ValueError(f"expected {k} batches, got {len(batches)}")
+        per_step = []
+        for batch in batches:
+            state, metrics = train_step(state, batch)
+            per_step.append(metrics)
+        return state, {key: torch.stack([m[key] for m in per_step])
+                       for key in per_step[0]}
+
+    return multi

@@ -488,3 +488,51 @@ def test_pool_backward_tiles_match_plain(shape, dtype):
     torch.cuda.synchronize()
     assert torch.equal(dx, maxpool.pool_bwd(dy, idx, *shape[1:3]))
     assert torch.equal(dx, cuda_maxpool.launch_pool_bwd(dy, idx, *shape[1:3]))
+
+
+def _loader_twin():
+    from multimodal_clinical_tpu_torch.data import loader, sampler, synthetic
+
+    train = synthetic.make_synthetic_splits(
+        "vggsound", 5, n_train=37, n_val=1, n_test=1,
+        shapes=[(9, 12, 1), (2, 6, 6, 3)])[0]
+    return loader.Loader(train, 8, sampler.WeightedSampler(train.labels,
+                                                           seed=3),
+                         workers=3, transfer_dtype=torch.bfloat16,
+                         device="cuda")
+
+
+def test_loader_copies_the_host_batches_to_the_card():
+    """Pinned copies on the loader's side stream, read by a consumer on a
+    stream of its own: bit-equal to the host batches, and ``skip``."""
+    ld = _loader_twin()
+    ld.set_epoch(2)
+    host = list(ld._host_batches())
+    consumer = torch.cuda.Stream()
+    with torch.cuda.stream(consumer):
+        got = [{k: v.clone() for k, v in b.items()} for b in ld]
+    torch.cuda.synchronize()
+    assert len(got) == len(host) == 5
+    for b, h in zip(got, host):
+        assert b.keys() == h.keys()
+        for k in h:
+            assert b[k].device.type == "cuda" and b[k].dtype == h[k].dtype
+            assert torch.equal(b[k].cpu(), h[k]), k
+    ld.skip(2)
+    assert len(list(ld)) == 3
+
+
+def test_loader_producer_stops_when_abandoned_on_the_card():
+    import threading
+    import time
+
+    ld = _loader_twin()
+    it = iter(ld)
+    next(it)
+    it.close()
+    deadline = time.monotonic() + 10
+    while (any(t.name == "loader-producer" for t in threading.enumerate())
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    assert not any(t.name == "loader-producer"
+                   for t in threading.enumerate())

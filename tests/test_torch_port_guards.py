@@ -34,7 +34,8 @@ torch.set_num_threads(2)
 PACKAGE = Path(multimodal_clinical_tpu_torch.__file__).parent
 MODULES = sorted(p.relative_to(PACKAGE).as_posix()
                  for p in PACKAGE.rglob("*.py"))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_clinical_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_clinical_tpu",
+             "yaml", "ml_dtypes", "PIL", "wandb", "orbax"}
 
 
 def _module_name(rel):
@@ -82,6 +83,25 @@ def test_importing_every_module_loads_no_jax():
                           text=True, timeout=120,
                           cwd=PACKAGE.parent)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_native_binding_never_spawns_make(monkeypatch):
+    """The port loads the committed ``native/libfastdata.so`` as it is: no
+    subprocess, so ``native/`` is never rebuilt."""
+    import subprocess as sp
+
+    from multimodal_clinical_tpu_torch.utils import native
+
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"spawned {args[0] if args else kwargs}")
+
+    for name in ("run", "Popen", "call", "check_call", "check_output"):
+        monkeypatch.setattr(sp, name, refuse)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    native.available()  # loads the library or reports it unavailable
+    assert native._tried
+    assert "subprocess" not in _imported_roots(PACKAGE / "utils/native.py")
 
 
 @pytest.fixture
