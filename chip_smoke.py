@@ -56,10 +56,39 @@ Phases, each of which raises on failure:
    frames) through the ``Loader`` with 4 gather threads, two epochs; the
    log-STFT kernel must launch once per train, val and test step, and the
    epoch-2 train steps' wall time is printed beside the fixture's step of
-   phase 7, whose batch is already on the card.
+   phase 7, whose batch is already on the card;
+13. contracts, card against CPU: a narrow Crema-D net (width 8, 257 x 40
+   spectrograms from waveforms, one 32 x 32 frame) for two train steps,
+   the second batch with a padded tail, from the same weights under
+   jlogits, ensemble, ogm_ge (modes OGM and OGM_GE, the same noise
+   tensors on both), qmf and ogm_ge_lreg: in fp32 (TF32 off) the losses,
+   BN buffers, EMA and QMF tables, in float64 the parameter updates and
+   momentum buffers too; the tables written at the batches' real idx only;
+14. Crema-D and AVE at the published geometry, nothing cut (two width-64
+   ResNet18 towers in bf16, batch 64, 160 000-sample waveforms through
+   ``cremad_spectrogram`` to (257, 1004), 3 or 6 uint8 frames of 224 x
+   224): each of Crema-D's ten and AVE's three model types through its
+   benchmark's spec and device preprocess, one warm-up step (a padded
+   tail, after which the QMF History must have changed at the batch's
+   real idx and nowhere else), timed steps and one eval step, with step
+   ms, samples/s and peak GiB; one Crema-D ogm_ge run with
+   ``pool_kernel="pallas"``, whose max-pool launches are asserted and
+   whose max-pool calls are recorded, each kernel then held against its
+   plain version exactly at every shape recorded there; then
+   VGGSound's jlogits and ensemble at batch 224 from waveforms, the
+   log-STFT launches asserted;
+15. contracts CLI: ``python3 -m multimodal_clinical_tpu_torch --dir cremad
+   --set model_type=qmf`` at full width on the synthetic twin, two epochs,
+   then ``--resume`` for a third in process through the same entry point
+   (``__main__.run_training``), whose restored History tables must equal
+   the saved ones; then ``--dir ave`` for one epoch.
 
 Each path's launch counts are set to 0 just before it is driven and read
-just after; launches made to compare or time a kernel do not count.
+just after; launches made to compare or time a kernel do not count.  The
+kernels' line gives each kernel's launches on the main path as
+``launches`` and on the later paths under ``launches_by_path``; the
+max-pool's entries list the shapes checked on the phase 14 path under
+``checked_shapes_by_path``.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints no
@@ -766,6 +795,13 @@ def _switch_launchers():
             "maxpool_bwd": cmp.launch_pool_bwd}
 
 
+def _all_launchers():
+    from multimodal_clinical_tpu_torch.ops import cuda_spectrogram as cs
+
+    return {"log_spectrogram": cs.launch_log_spectrogram,
+            **_switch_launchers()}
+
+
 @contextlib.contextmanager
 def _recording_calls():
     """While open, every call of a switch's wrapper appends the shape it
@@ -817,10 +853,8 @@ def _drive_vggsound(device, card: str, pool_kernel: str, expected):
         build_vggsound_bench,
     )
     from multimodal_clinical_tpu_torch.engine.steps import make_eval_step
-    from multimodal_clinical_tpu_torch.ops import cuda_spectrogram as cs
 
-    launchers = {"log_spectrogram": cs.launch_log_spectrogram,
-                 **_switch_launchers()}
+    launchers = _all_launchers()
     tag = f"[main pool_kernel={pool_kernel!r}]"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -892,17 +926,17 @@ def phase_main_path(device, card: str, kernels):
     return default_ms
 
 
-# phases 11-12 write their runs here (gitignored), and remove them after
+# phases 11-12 and 15 write their runs here (gitignored), and remove them after
 WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 RUN_NAME = "vggsound_cls309_jprobas_seeds"  # configs/vggsound.yaml group
 
 
-def _cli(args, timeout: int = 600) -> str:
-    """``python3 -m multimodal_clinical_tpu_torch --dir vggsound`` with
+def _cli(args, timeout: int = 600, bench: str = "vggsound") -> str:
+    """``python3 -m multimodal_clinical_tpu_torch --dir <bench>`` with
     ``args`` from the repository root; raises unless it exits 0.  Returns
     its standard output."""
     cmd = [sys.executable, "-m", "multimodal_clinical_tpu_torch",
-           "--dir", "vggsound", *args]
+           "--dir", bench, *args]
     t = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=timeout, cwd=Path(__file__).resolve().parent)
@@ -1553,6 +1587,455 @@ def phase_probe_kernels(launches):
     return entries
 
 
+# -- phases 13-15: the other contracts, Crema-D and AVE ---------------------
+
+# phase 13: a narrow fp32 Crema-D net, card against CPU, for each contract
+# (model type, OGM mode); two steps, the second batch with a padded tail
+CONTRACT_CASES = (("jlogits", None), ("ensemble", None), ("ogm_ge", "OGM"),
+                  ("ogm_ge", "OGM_GE"), ("qmf", None),
+                  ("ogm_ge_lreg", "OGM_GE"))
+CONTRACT_ROWS, CONTRACT_VALID, CONTRACT_TABLE = 6, 4, 12
+# 6713 samples: cremad_spectrogram's 257 bins by 40 frames
+CONTRACT_SAMPLES = 512 + 159 * 39
+# the QMF History, card against CPU: the batch-mean CE and logsumexp / 10
+# of the logits, continuous in the inputs, so as close as the losses in
+# fp32; in float64 the logits agree to ~1e-12 before the tables' fp32
+# casts, so the tables to an ulp or two
+CPU_TABLE_RTOL, CPU_TABLE_ATOL = 1e-4, 1e-6
+F64_TABLE_RTOL, F64_TABLE_ATOL = 1e-6, 1e-7
+# phase 14: Crema-D and AVE at the published geometry (configs/cremad.yaml,
+# configs/ave.yaml; data/synthetic.py): batch 64, 10 s at 16 kHz
+FULL_BATCH, FULL_SAMPLES, FULL_IMAGE, FULL_TIMED = 64, 160000, 224, 3
+# the History's rows: Crema-D's 7442 clips (its train split is a part)
+CREMAD_CLIPS = 7442
+# rows of the batch with a padded tail (the QMF scatter check)
+FULL_VALID = 60
+
+
+def _contract_batches(dev):
+    """Two narrow Crema-D batches: the first full, the second with a
+    padded tail (the last real row repeated, ``idx`` included)."""
+    rng = np.random.default_rng(0)
+    ids = rng.permutation(CONTRACT_TABLE)
+    out = []
+    for step, real in enumerate((CONTRACT_ROWS, CONTRACT_VALID)):
+        rows = np.arange(CONTRACT_ROWS).clip(max=real - 1)
+        wave = rng.normal(scale=0.1, size=(CONTRACT_ROWS, CONTRACT_SAMPLES))
+        frames = rng.integers(0, 256, size=(CONTRACT_ROWS, 1, 32, 32, 3),
+                              dtype=np.uint8)
+        label = rng.integers(0, 6, size=CONTRACT_ROWS)
+        idx = ids[step * CONTRACT_ROWS:(step + 1) * CONTRACT_ROWS]
+        valid = (np.arange(CONTRACT_ROWS) < real).astype(np.float32)
+        out.append({k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    for k, v in (("x1_waveform", wave[rows].astype(
+                        np.float32)), ("x2", frames[rows]),
+                        ("label", label[rows]), ("idx", idx[rows]),
+                        ("valid", valid))})
+    return out
+
+
+def _contract_noise():
+    """One standard-normal CPU draw per conv weight of the narrow net, by
+    name: the same OGM-GE noise on the card and on the CPU."""
+    from multimodal_clinical_tpu_torch.algos.ogm_ge import (
+        modulated_parameters,
+    )
+    from multimodal_clinical_tpu_torch.models.zoo import CremadFusionNet
+
+    gen = torch.Generator().manual_seed(7)
+    return {name: torch.randn(p.shape, generator=gen)
+            for _, name, p in modulated_parameters(
+                CremadFusionNet(6, width=8))}
+
+
+def _contract_steps(dev, dtype, model_type, mode, noise, preprocess=None):
+    """Two train steps of the narrow Crema-D net under ``model_type`` on
+    ``dev``: losses, the initial and final state_dict, momentum buffers,
+    EMA and QMF tables, on the CPU."""
+    import dataclasses
+
+    from multimodal_clinical_tpu_torch.benchmarks import cremad
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+    from multimodal_clinical_tpu_torch.engine.steps import make_train_step
+    from multimodal_clinical_tpu_torch.models.zoo import CremadFusionNet
+
+    args = SimpleNamespace(num_classes=6, batch_size=CONTRACT_ROWS,
+                           learning_rate=1e-2, num_epochs=60,
+                           use_scheduler=False, seed=0,
+                           model_type=model_type, alpha=0.8,
+                           grad_mod_type=mode or "OGM_GE")
+    spec, _ = cremad.get_model_spec(args, n_train=CONTRACT_TABLE)
+    spec = dataclasses.replace(
+        spec, module=CremadFusionNet(6, width=8),
+        device_preprocess=preprocess or spec.device_preprocess)
+    state = create_train_state(spec, args, seed=0, steps_per_epoch=100,
+                               device=dev)
+    state.model.to(dtype)
+    cpu = lambda t: t.detach().cpu().clone()
+    init = {k: cpu(v) for k, v in state.model.state_dict().items()}
+    step = make_train_step(spec, ogm_noise=lambda _: (
+        lambda name, g: noise[name].to(g.device)))
+    losses = []
+    for batch in _contract_batches(dev):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["train_loss"]))
+    named = dict(state.model.named_parameters())
+    tables = None
+    if state.qmf_correctness is not None:
+        tables = (cpu(state.qmf_correctness), cpu(state.qmf_confidence))
+    return dict(
+        losses=losses, init=init, tables=tables,
+        final={k: cpu(v) for k, v in state.model.state_dict().items()},
+        momentum={k: cpu(state.optimizer.state[p]["momentum_buffer"])
+                  for k, p in named.items()},
+        ema=cpu(state.ema))
+
+
+def _check_tables(card, host, rtol, atol, what):
+    if card["tables"] is None and host["tables"] is None:
+        return "no tables"
+    seen = np.unique(np.concatenate([
+        b["idx"][b["valid"] > 0].numpy() for b in _contract_batches("cpu")]))
+    for name, got, want in zip(("correctness", "confidence"), card["tables"],
+                               host["tables"]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol,
+                                   atol=atol, err_msg=f"{what} {name}")
+        written = np.flatnonzero((got != 0).any(dim=0).numpy())
+        if not np.array_equal(written, seen):
+            raise AssertionError(f"{what}: {name} written at {written}, the "
+                                 f"batches' real idx are {seen}")
+    return (f"tables within {_scaled_err(card['tables'][0], host['tables'][0]):.2e}"
+            f" / {_scaled_err(card['tables'][1], host['tables'][1]):.2e}")
+
+
+def phase_contracts_card_against_cpu(device):
+    """Phase 13: each contract on a narrow Crema-D net, card against CPU,
+    from the same weights, inputs and OGM noise.
+
+    fp32 (TF32 off), each device with its own preprocess: the losses, BN
+    buffers, EMA and QMF tables, which are continuous in the inputs (see
+    phase 6 for why parameter updates are not compared in fp32).  float64,
+    both devices fed the card's preprocessed batch: parameter updates and
+    momentum buffers held to F64_TOL of each tensor's largest entry, the
+    losses to F64_LOSS_RTOL, the tables to F64_TABLE_RTOL."""
+    from multimodal_clinical_tpu_torch.benchmarks import cremad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    cpu = torch.device("cpu")
+    noise = _contract_noise()
+
+    def shared(batch, generator, train):
+        out = cremad.device_preprocess(
+            {k: v.to(device) for k, v in batch.items()}, generator, train)
+        dev = batch["label"].device
+        return {k: (v.double() if k in ("x1", "x2") else v).to(dev)
+                for k, v in out.items()}
+
+    for model_type, mode in CONTRACT_CASES:
+        what = model_type + (f" ({mode})" if mode else "")
+        card, host = (_contract_steps(device, torch.float32, model_type, mode,
+                                      noise),
+                      _contract_steps(cpu, torch.float32, model_type, mode,
+                                      noise))
+        _compare_fp32_steps(card, host, f"Crema-D {what}")
+        fp32_tables = _check_tables(card, host, CPU_TABLE_RTOL,
+                                    CPU_TABLE_ATOL, what)
+        card, host = (_contract_steps(device, torch.float64, model_type, mode,
+                                      noise, shared),
+                      _contract_steps(cpu, torch.float64, model_type, mode,
+                                      noise, shared))
+        np.testing.assert_allclose(card["losses"], host["losses"],
+                                   rtol=F64_LOSS_RTOL)
+        worst = {"update": 0.0, "momentum": 0.0}
+        for key, want in host["final"].items():
+            if "running" in key or "num_batches" in key:
+                continue
+            pairs = {"update": (card["final"][key] - card["init"][key],
+                                want - host["init"][key]),
+                     "momentum": (card["momentum"][key],
+                                  host["momentum"][key])}
+            for kind, (got, ref) in pairs.items():
+                err = _scaled_err(got, ref)
+                worst[kind] = max(worst[kind], err)
+                if not err <= F64_TOL:
+                    raise AssertionError(
+                        f"Crema-D {what} {key} {kind}: card and CPU differ "
+                        f"by {err:.3e} of its largest entry")
+        f64_tables = _check_tables(card, host, F64_TABLE_RTOL, F64_TABLE_ATOL,
+                                   what)
+        log(f"[contracts] card against CPU, Crema-D {what}: fp32 {fp32_tables}"
+            f"; float64 losses card {card['losses']} cpu {host['losses']}, "
+            f"updates within {worst['update']:.2e}, momentum within "
+            f"{worst['momentum']:.2e}, {f64_tables}")
+
+
+def _full_batch(bench: str, frames: int, classes: int, device, valid: int):
+    """A full-width batch on the card from numpy's seed-0 generator:
+    ``x1_waveform`` of 10 s at 16 kHz, uint8 frames of 224 x 224, labels,
+    distinct ``idx`` in the Crema-D table; the last ``FULL_BATCH - valid``
+    rows repeat the last real one, ``idx`` included."""
+    rng = np.random.default_rng(0)
+    rows = np.arange(FULL_BATCH).clip(max=valid - 1)
+    wave = rng.normal(scale=0.1, size=(FULL_BATCH, FULL_SAMPLES)).astype(
+        np.float32)
+    x2 = rng.integers(0, 256, size=(FULL_BATCH, frames, FULL_IMAGE,
+                                    FULL_IMAGE, 3), dtype=np.uint8)
+    label = rng.integers(0, classes, size=FULL_BATCH)
+    idx = rng.permutation(CREMAD_CLIPS)[:FULL_BATCH]
+    batch = {"x1_waveform": wave[rows], "x2": x2[rows], "label": label[rows],
+             "idx": idx[rows],
+             "valid": (np.arange(FULL_BATCH) < valid).astype(np.float32)}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def _drive_model_type(device, card: str, bench: str, model_type: str,
+                      batches, expected=None, pool_kernel: str = "xla",
+                      state_from=None):
+    """One warm-up step on ``batches[0]``, FULL_TIMED timed steps and one
+    eval step on ``batches[1]`` of ``bench``'s ``model_type`` at full
+    width, from the benchmark's own spec and device preprocess.  Raises
+    unless every loss is finite, the eval output is finite, the QMF
+    History changed exactly at the warm-up batch's real ``idx``, and the
+    kernels launched as ``expected``.  Returns (step ms, launches)."""
+    import dataclasses
+    import importlib
+
+    from multimodal_clinical_tpu_torch.config import load_config
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+    from multimodal_clinical_tpu_torch.engine.steps import (
+        make_eval_step, make_train_step,
+    )
+    from multimodal_clinical_tpu_torch.models.zoo import CremadFusionNet
+
+    module = importlib.import_module(
+        f"multimodal_clinical_tpu_torch.benchmarks.{bench}")
+    args = load_config(bench, overrides=dict(model_type=model_type))
+    rows = int(batches[0]["label"].shape[0])
+    spec, _ = module.get_model_spec(args, n_train=CREMAD_CLIPS)
+    tag = f"[{bench} {model_type}" + (
+        f" pool_kernel={pool_kernel!r}]" if pool_kernel != "xla" else "]")
+    torch.cuda.reset_peak_memory_stats()
+    if state_from is None:
+        if pool_kernel != "xla":
+            spec = dataclasses.replace(spec, module=CremadFusionNet(
+                int(args.num_classes), dtype=spec.module.x1_classifier.dtype,
+                pool_kernel=pool_kernel))
+        state = create_train_state(spec, args, int(args.seed),
+                                   steps_per_epoch=100, device=device)
+    else:
+        # the fixture's state and towers under this model type's spec
+        state = state_from
+        spec = dataclasses.replace(spec, module=state.model)
+    train_step, eval_step = make_train_step(spec), make_eval_step(spec)
+    tables = None
+    if state.qmf_correctness is not None:
+        tables = (state.qmf_correctness.clone(), state.qmf_confidence.clone())
+    launchers = _all_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    losses, step_ms = [], []
+    for i in range(1 + FULL_TIMED):
+        t = time.perf_counter()
+        state, metrics = train_step(state, batches[min(i, 1)])
+        torch.cuda.synchronize()
+        elapsed = (time.perf_counter() - t) * 1e3
+        losses.append(float(metrics["train_loss"]))
+        if i:
+            step_ms.append(elapsed)
+        if i == 0 and tables is not None:
+            batch = batches[0]
+            real = torch.unique(batch["idx"][batch["valid"] > 0])
+            changed = ((state.qmf_correctness != tables[0])
+                       | (state.qmf_confidence != tables[1])).any(dim=0)
+            written = torch.nonzero(changed)[:, 0]
+            if spec.qmf_ablate_train:
+                real = real[:0]  # trains plain joint logits
+            if not torch.equal(written.cpu(), real.cpu()):
+                raise AssertionError(
+                    f"{tag} the History changed at {written.numel()} rows, "
+                    f"the batch's real idx are {real.numel()} rows")
+    out = eval_step(state, batches[1])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in launchers.items()}
+    classes = int(args.num_classes)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag} non-finite train loss: {losses}")
+    if out["logits_stack"].shape != (rows, 2, classes) or not bool(
+            torch.isfinite(out["logits_stack"]).all()) or not math.isfinite(
+                float(out["loss"])):
+        raise AssertionError(f"{tag} eval output is not finite or misshaped")
+    for name, count in launches.items():
+        if count != (expected or {}).get(name, 0):
+            raise AssertionError(f"{tag} {name} launched {count} times, "
+                                 f"expected {(expected or {}).get(name, 0)}")
+    median = statistics.median(step_ms)
+    log(f"{tag} {card}: train step median {median:.2f} ms over {FULL_TIMED} "
+        f"(each {', '.join(f'{m:.2f}' for m in step_ms)}); "
+        f"{rows / median * 1e3:.1f} samples/s at batch {rows}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; warm-up "
+        f"loss {losses[0]:.5f}, eval loss {float(out['loss']):.5f}"
+        + (" (History written at the real idx only)" if tables is not None
+           else "") + f"; launches {launches}")
+    del state, train_step, eval_step, out
+    torch.cuda.empty_cache()
+    return median, launches
+
+
+def phase_full_width(device, card: str, kernels):
+    """Phase 14: Crema-D's ten and AVE's three model types at the published
+    geometry, nothing cut; one Crema-D ogm_ge run with the stored-index
+    max-pool, whose kernels are then held against their plain versions at
+    the shapes that run gave them; then VGGSound's jlogits and ensemble
+    at batch 224 from waveforms, the log-STFT's launches asserted."""
+    from multimodal_clinical_tpu_torch.benchmarks import ave, cremad
+    from multimodal_clinical_tpu_torch.benchmarks.vggsound_fixture import (
+        build_vggsound_bench,
+    )
+
+    by_path = collections.defaultdict(dict)
+    pool_shapes = {}
+    train_steps = 1 + FULL_TIMED
+    for bench, module, frames, classes in (
+            ("cremad", cremad, 3, 6), ("ave", ave, ave.NUM_FRAMES, 28)):
+        t = time.perf_counter()
+        batches = [_full_batch(bench, frames, classes, device, FULL_VALID),
+                   _full_batch(bench, frames, classes, device, FULL_BATCH)]
+        log(f"[{bench}] batches of {FULL_BATCH} x {FULL_SAMPLES} samples and "
+            f"{frames} uint8 frames of 224 x 224 made in "
+            f"{time.perf_counter() - t:.1f} s")
+        for model_type in module.MODEL_TYPES:
+            _drive_model_type(device, card, bench, model_type, batches)
+        if bench == "cremad":
+            # OGM-GE's walk over the 4-D parameters of the switched towers:
+            # two stem max-pools each way per train step, none in eval
+            with _recording_calls() as calls:
+                _, launches = _drive_model_type(
+                    device, card, bench, "ogm_ge", batches,
+                    expected={"maxpool_fwd": 2 * train_steps,
+                              "maxpool_bwd": 2 * train_steps},
+                    pool_kernel="pallas")
+            for name in ("maxpool_fwd", "maxpool_bwd"):
+                by_path[name]["cremad_ogm_ge_pallas"] = launches[name]
+            pool_shapes["cremad_ogm_ge_pallas"] = _check_path_pools(
+                calls, "cremad ogm_ge pool_kernel='pallas'")
+        del batches
+        torch.cuda.empty_cache()
+    for model_type in ("jlogits", "ensemble"):
+        _, state, batch, _ = build_vggsound_bench(BATCH, CLASSES,
+                                                  device=device)
+        # one log-STFT launch per train and eval step
+        _, launches = _drive_model_type(
+            device, card, "vggsound", model_type, [batch, batch],
+            expected={"log_spectrogram": train_steps + 1}, state_from=state)
+        by_path["log_spectrogram"][f"vggsound_{model_type}"] = launches[
+            "log_spectrogram"]
+        del state, batch
+        torch.cuda.empty_cache()
+    for entry in kernels:
+        if entry["name"] in by_path:
+            entry.setdefault("launches_by_path", {}).update(
+                by_path[entry["name"]])
+        if entry["name"] in ("maxpool_fwd", "maxpool_bwd"):
+            entry.setdefault("checked_shapes_by_path", {}).update(pool_shapes)
+
+
+def _check_path_pools(calls, what: str):
+    """Both max-pool kernels against their plain versions (exactly) at
+    every NHWC shape that a path's run gave them (``calls``, recorded by
+    ``_recording_calls``), on a post-ReLU bf16 map as the stem gives;
+    returns the shapes."""
+    fwd, bwd = (collections.Counter(calls[n])
+                for n in ("maxpool_fwd", "maxpool_bwd"))
+    if fwd != bwd or not fwd:
+        raise AssertionError(f"{what}: maxpool_fwd saw {dict(fwd)}, "
+                             f"maxpool_bwd saw {dict(bwd)}")
+    for shape in sorted(fwd):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn(shape, device="cuda", dtype=torch.bfloat16,
+                        generator=gen).clamp_min_(0)
+        _check_pool(x, f"{what} {shape}")
+        del x
+    log(f"[kernels] max-pool at the shapes of {what} "
+        f"({', '.join(f'{s} x{n}' for s, n in sorted(fwd.items()))}): "
+        f"forward and backward equal to the plain version")
+    torch.cuda.empty_cache()
+    return [list(s) for s in sorted(fwd)]
+
+
+def phase_contracts_cli(device):
+    """Phase 15: ``python3 -m multimodal_clinical_tpu_torch --dir cremad
+    --set model_type=qmf`` at full width on the synthetic twin, two epochs;
+    then ``--resume`` for a third in process through the same entry point,
+    whose restored History tables must equal the saved ones; then ``--dir
+    ave`` for one epoch."""
+    from multimodal_clinical_tpu_torch import __main__ as cli
+    from multimodal_clinical_tpu_torch.engine import run
+
+    work = WORK_DIR / "contracts_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        base = ["--set", f"ckpt_dir={work}", "--set", f"data_path={work}/none"]
+        qmf = base + ["--set", "model_type=qmf"]
+        out = _cli(qmf + ["--set", "num_epochs=2"], bench="cremad")
+        summary = ast.literal_eval(out.strip().splitlines()[-1])
+        if not math.isfinite(summary.get("test_epoch/test_avg_df_acc",
+                                         math.nan)):
+            raise AssertionError(f"no test_epoch/test_avg_df_acc: {summary}")
+        ckpt = work / "cremad_cls6" / "ckpt"
+        names = sorted(os.listdir(ckpt))
+        if names != ["best", "last-1", "last-2", "meta.json"]:
+            raise AssertionError(f"checkpoint directory: {names}")
+        saved = torch.load(ckpt / "last-2" / "state.pt", map_location="cpu",
+                           weights_only=True)
+        restored = {}
+
+        class Watched(run.Trainer):
+            def resume(self):
+                found = super().resume()
+                restored.update(
+                    step=int(self.state.step),
+                    corr=self.state.qmf_correctness.cpu().clone(),
+                    conf=self.state.qmf_confidence.cpu().clone())
+                return found
+
+        trainer_cls, run.Trainer = run.Trainer, Watched
+        try:
+            t = time.perf_counter()
+            cli.run_training(["--dir", "cremad", *qmf, "--set",
+                              "num_epochs=3", "--resume"], device=device)
+            wall = time.perf_counter() - t
+        finally:
+            run.Trainer = trainer_cls
+        if (restored.get("step") != 2
+                or not torch.equal(restored["corr"], saved["qmf_correctness"])
+                or not torch.equal(restored["conf"], saved["qmf_confidence"])
+                or not bool(saved["qmf_correctness"].any())):
+            raise AssertionError("--resume did not restore the saved History "
+                                 f"(step {restored.get('step')})")
+        meta = json.loads((ckpt / "meta.json").read_text())
+        if meta["epochs_done"] != 3:
+            raise AssertionError(f"--resume: meta {meta}")
+        log(f"[cli] cremad qmf --resume in process ({wall:.1f} s): restored "
+            f"step 2 and the saved History, {int((saved['qmf_correctness'] != 0).sum())}"
+            f" of {saved['qmf_correctness'].numel()} entries written; three "
+            f"epochs done")
+        out = _cli(base + ["--set", "num_epochs=1"], bench="ave")
+        summary = ast.literal_eval(out.strip().splitlines()[-1])
+        rows = _epoch_rows(work / "ave_cls28_jprobas_seeds")
+        if (not math.isfinite(summary.get("avg_test_acc", math.nan))
+                or [r["epoch"] for r in rows] != [0, -1]):
+            raise AssertionError(f"ave: summary {summary}, rows {rows}")
+        log(f"[cli] ave one epoch: test_avg_acc "
+            f"{summary['test_epoch/test_avg_acc']:.4f} (legacy alias "
+            f"avg_test_acc {summary['avg_test_acc']:.4f})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -1572,6 +2055,9 @@ def main() -> int:
     phase_cli()
     phase_loop(device, card, fixture_ms, kernels)
     kernels += phase_probe_kernels(phase_probes(card))
+    phase_contracts_card_against_cpu(device)
+    phase_full_width(device, card, kernels)
+    phase_contracts_cli(device)
     missing = [e["name"] for e in kernels if not e["launches"]]
     if missing:
         raise AssertionError(f"kernels not launched on their path: {missing}")

@@ -4,19 +4,17 @@
 Each benchmark module exposes
     get_data(args) -> engine.run.DataBundle
     get_model_spec(args, n_train) -> (engine.spec.ModelSpec, opt_kwargs)
-The port has VGGSound; each other name raises, naming the ROADMAP.md
-queue A item that ports it.
+The port has VGGSound, Crema-D and AVE; each other name raises, naming
+the ROADMAP.md queue A item that ports it.
 """
 
 from __future__ import annotations
 
 import importlib
 
-_REGISTRY = {"vggsound": ".vggsound"}
+_REGISTRY = {"vggsound": ".vggsound", "cremad": ".cremad", "ave": ".ave"}
 
 _NOT_PORTED = {
-    "cremad": 10,
-    "ave": 10,
     "avmnist": 12,
     "mimic": 13,
     "mustard": 13,
@@ -24,6 +22,14 @@ _NOT_PORTED = {
     "food101": 15,
     "fakenews": 16,
 }
+
+
+def disk_data_not_ported(path: str, name: str) -> NotImplementedError:
+    """The error a benchmark's ``get_data`` raises where its disk dataset
+    is present: the port serves the synthetic twins only."""
+    return NotImplementedError(
+        f"{path}: the {name} disk dataset is not ported yet (ROADMAP.md "
+        "queue A, item 8b)")
 
 
 def get_benchmark(name: str):

@@ -1,5 +1,6 @@
 """VGGSound: data, device preprocessing and model spec (port of
-``multimodal_clinical_tpu/benchmarks/vggsound.py:337-443``).
+``multimodal_clinical_tpu/benchmarks/vggsound.py:337-443``), under
+jlogits / jprobas / ensemble.
 
 ``get_data`` serves the synthetic twin (64/32/32 rows, the spectrogram
 ``x1`` and four frames of ``x2`` at the reference's geometry); the disk
@@ -20,6 +21,7 @@ from ..engine.spec import ModelSpec, resolve_dtype
 from ..models.zoo import CremadFusionNet
 from ..ops.cuda_spectrogram import log_spectrogram
 from ..ops.specaugment import apply_masks, spec_augment_masks
+from . import disk_data_not_ported
 
 N_FFT = 256
 HOP = 128
@@ -32,9 +34,7 @@ def get_data(args) -> DataBundle:
     data_dir = getattr(args, "data_path", "data/vggsound/")
     csv_path = os.path.join(data_dir, "vggsound.csv")
     if os.path.exists(csv_path):
-        raise NotImplementedError(
-            f"{csv_path}: the VGGSound disk dataset is not ported yet "
-            "(ROADMAP.md queue A, item 8b)")
+        raise disk_data_not_ported(csv_path, "VGGSound")
     print(f"[vggsound] real data not found under {data_dir!r}; "
           "using synthetic twin", flush=True)
     train, val, test = make_synthetic_splits(
@@ -69,18 +69,25 @@ def device_preprocess(batch: Dict[str, torch.Tensor],
 
 def get_model_spec(args, n_train: int) -> Tuple[ModelSpec, Dict]:
     model_type = getattr(args, "model_type", "jprobas")
-    if model_type != "jprobas":
-        raise NotImplementedError(
-            f"vggsound model_type {model_type!r} is not ported yet "
-            "(ROADMAP.md queue A, item 11)")
     module = CremadFusionNet(num_classes=int(args.num_classes),
                              dtype=resolve_dtype(args))
-    spec = ModelSpec(module=module, contract="jprobas", sched_step_size=30,
-                     sched_gamma=0.5, device_preprocess=device_preprocess,
-                     # legacy runner: no ModelCheckpoint, test on the
-                     # final-epoch weights (vggsound/run_training.py:106-130)
-                     test_restore_best=False,
-                     # flat epoch-end names (vggsound/ensemble_model.py:
-                     # 171-174)
-                     legacy_metric_aliases=True)
+    common = dict(sched_step_size=30, sched_gamma=0.5,
+                  device_preprocess=device_preprocess,
+                  # legacy runner: no ModelCheckpoint, test on the
+                  # final-epoch weights (vggsound/run_training.py:106-130)
+                  test_restore_best=False,
+                  # flat epoch-end names (vggsound/ensemble_model.py:
+                  # 171-174)
+                  legacy_metric_aliases=True)
+    if model_type == "jlogits":
+        spec = ModelSpec(module=module, contract="jlogits", **common)
+    elif model_type == "jprobas":
+        spec = ModelSpec(module=module, contract="jprobas", **common)
+    elif model_type == "ensemble":
+        # legacy dir: the train loss is the MEAN
+        # (vggsound/ensemble_model.py:114)
+        spec = ModelSpec(module=module, contract="ensemble",
+                         ensemble_train_mean=True, **common)
+    else:
+        raise NotImplementedError(f"vggsound model_type {model_type!r}")
     return spec, {}

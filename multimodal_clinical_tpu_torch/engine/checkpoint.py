@@ -5,8 +5,9 @@ Mirrors the reference flow (utils/run_trainer.py:23-33, 65): a single best
 checkpoint keyed on ``val_epoch/val_avg_acc`` (max, strictly greater),
 reloaded before the test pass where the benchmark asks for it.  The FULL
 train state is saved with ``torch.save``: the model's parameters and BN
-buffers, the optimizer (momentum), the EMA calibration, the step and the
-seed, so training also resumes exactly, mid-epoch included.
+buffers, the optimizer (momentum), the EMA calibration, the QMF History
+tables, the step and the seed, so training also resumes exactly,
+mid-epoch included.
 
 Layout, as the JAX package writes it:
 
@@ -47,6 +48,8 @@ def state_to_tree(state: TrainState) -> Dict[str, Any]:
         "optimizer": state.optimizer.state_dict(),
         "ema": state.ema,
         "seed": int(state.seed),
+        "qmf_correctness": state.qmf_correctness,
+        "qmf_confidence": state.qmf_confidence,
     }
 
 
@@ -58,7 +61,11 @@ def tree_into_state(state: TrainState, tree: Dict[str, Any],
     if weights_only:
         return state
     state.optimizer.load_state_dict(tree["optimizer"])
-    state.ema = tree["ema"].to(state.ema.device)
+    device = state.ema.device
+    state.ema = tree["ema"].to(device)
+    for key in ("qmf_correctness", "qmf_confidence"):
+        table = tree.get(key)
+        setattr(state, key, None if table is None else table.to(device))
     state.step = int(tree["step"])
     state.seed = int(tree["seed"])
     return state
@@ -197,7 +204,7 @@ class BestCheckpointer:
     def restore_last(self, state: TrainState, weights_only: bool = False
                      ) -> Optional[TrainState]:
         """Restore the state from the newest rolling checkpoint for exact
-        resume (model, optimizer, EMA, step, seed).  None if there is no
+        resume (model, optimizer, EMA, QMF tables, step, seed).  None if there is no
         checkpoint.  A torn newest checkpoint falls back to an older one."""
         candidates = self._last_candidates()
         if not candidates:

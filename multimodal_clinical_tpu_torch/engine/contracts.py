@@ -39,10 +39,17 @@ def accuracy(logits: torch.Tensor, label: torch.Tensor,
     return masked_mean(correct, valid)
 
 
-def fuse_logits(logits_list: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Late fusion: arithmetic mean of the unimodal logits
-    (joint_model.py:56)."""
-    return torch.stack([l.float() for l in logits_list]).mean(dim=0)
+def fuse_logits(logits_list: Sequence[torch.Tensor],
+                weights: Optional[Sequence[float]] = None) -> torch.Tensor:
+    """Late fusion of unimodal logits: the arithmetic mean
+    (joint_model.py:56), or with ``weights`` the MIMIC ensemble's weighted
+    sum ``w1*l1 + w2*l2`` (mimic/ensemble_model.py:127-128, 157)."""
+    stack = torch.stack([l.float() for l in logits_list])
+    if weights is None:
+        return stack.mean(dim=0)
+    w = torch.tensor(weights, dtype=torch.float32,
+                     device=stack.device).reshape(-1, 1, 1)
+    return (stack * w).sum(dim=0)
 
 
 def to_logprobs(logits_list: Sequence[torch.Tensor]) -> List[torch.Tensor]:

@@ -3,17 +3,19 @@
 
 The JAX TrainState is an immutable pytree; here it is a small mutable
 object that the train step updates in place: the model and the optimizer
-own their tensors, ``ema`` is replaced each step.
+own their tensors, ``ema`` and the QMF History tables are replaced each
+step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Optional
 
 import torch
 from torch import nn
 
+from ..algos.qmf import init_history
 from ..models.common import init_weights
 from ..utils.device import resolve_device
 from .spec import ModelSpec
@@ -63,16 +65,34 @@ class TrainState:
     # Lightning's LearningRateMonitor names the LR stream after the torch
     # optimizer class (utils/run_trainer.py:20)
     lr_metric_name: str = "lr-SGD"
+    # QMF History (existing_algos/QMF.py:12-29): (M, n_train) fp32 device
+    # tensors under the qmf contract, else None
+    qmf_correctness: Optional[torch.Tensor] = None
+    qmf_confidence: Optional[torch.Tensor] = None
 
     def step_generator(self) -> torch.Generator:
         return step_generator(self.seed, self.step)
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def mixed_seed(seed: int, step: int, stream: int = 0) -> int:
+    """A 64-bit generator seed from (seed, step, stream), every bit mixed
+    (splitmix64's finaliser).  The CPU generator keeps only the low 32
+    bits of its seed, so a seed that merely packs ``seed`` above ``step``
+    would let every run seed draw the same stream."""
+    z = ((seed & 0xFFFFFFFF) << 32 | (step & 0xFFFFFFFF)) ^ (
+        (stream * 0x9E3779B97F4A7C15) & _MASK64)
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
 def step_generator(seed: int, step: int) -> torch.Generator:
     """CPU generator for one step's random draws (the JAX step's
     ``fold_in(rng, step)``): the same draws whatever the device."""
-    return torch.Generator().manual_seed(
-        ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    return torch.Generator().manual_seed(mixed_seed(seed, step))
 
 
 def create_train_state(spec: ModelSpec, args: Any, seed: int,
@@ -80,7 +100,8 @@ def create_train_state(spec: ModelSpec, args: Any, seed: int,
                        momentum: float = 0.9,
                        weight_decay: float = 1.0e-4) -> TrainState:
     """Draw ``spec.module``'s weights from ``seed``, move it to ``device``
-    (channels_last), and build the optimizer and EMA state there."""
+    (channels_last), and build the optimizer, EMA and (under the qmf
+    contract) History tables there."""
     device = resolve_device(device)
     model = init_weights(spec.module, torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last)
@@ -92,5 +113,10 @@ def create_train_state(spec: ModelSpec, args: Any, seed: int,
                                weight_decay)
     ema = torch.zeros(spec.num_modality, int(args.num_classes),
                       dtype=torch.float32, device=device)
+    qmf_corr = qmf_conf = None
+    if spec.contract == "qmf":
+        qmf_corr, qmf_conf = init_history(spec.num_modality,
+                                          spec.n_train_samples, device)
     return TrainState(step=0, model=model, optimizer=optimizer, ema=ema,
-                      seed=seed, lr_schedule=schedule)
+                      seed=seed, lr_schedule=schedule,
+                      qmf_correctness=qmf_corr, qmf_confidence=qmf_conf)

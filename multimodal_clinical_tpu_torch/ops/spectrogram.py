@@ -1,5 +1,6 @@
-"""STFT log-spectrogram as plain PyTorch (port of
-``multimodal_clinical_tpu/ops/spectrogram.py``).
+"""STFT log-spectrograms as plain PyTorch (port of
+``multimodal_clinical_tpu/ops/spectrogram.py``): VGGSound's
+``log_spectrogram`` and Crema-D/AVE's ``cremad_spectrogram``.
 
 ``log_spectrogram`` is the plain version of the CUDA kernel in
 ``ops/cuda_spectrogram.py``: the CPU path, and what the kernel is held
@@ -60,3 +61,63 @@ def log_spectrogram(waveform: torch.Tensor, n_fft: int = 256, hop: int = 128,
     im = frames @ table[1]
     out = torch.log(torch.sqrt(re * re + im * im) + eps)
     return out.transpose(1, 2).contiguous()
+
+
+def _tukey_periodic(M: int, alpha: float) -> np.ndarray:
+    """Periodic (fftbins=True) Tukey window — scipy.signal.get_window's
+    construction: tukey(M + 1, alpha, sym=True) truncated by one sample."""
+    n = np.arange(M + 1, dtype=np.float64)
+    m = M  # = (M + 1) - 1
+    width = int(np.floor(alpha * m / 2.0))
+    w = np.ones(M + 1, dtype=np.float64)
+    n1 = n[: width + 1]
+    w[: width + 1] = 0.5 * (1 + np.cos(np.pi * (-1 + 2.0 * n1 / alpha / m)))
+    n3 = n[-(width + 1):]
+    w[-(width + 1):] = 0.5 * (
+        1 + np.cos(np.pi * (-2.0 / alpha + 1 + 2.0 * n3 / alpha / m)))
+    return w[:-1]
+
+
+@functools.lru_cache(maxsize=8)
+def _psd_tables(nperseg: int, fs: int, device: torch.device):
+    """(window (nperseg,), per-bin density scale (nperseg//2 + 1,)) fp32
+    on ``device``: the periodic tukey(0.25) window, and the one-sided
+    density scaling (x2 except DC and, for even nperseg, Nyquist, over
+    fs * sum(win^2)), both computed in float64."""
+    win = _tukey_periodic(nperseg, 0.25)
+    sided = np.full(nperseg // 2 + 1, 2.0)
+    sided[0] = 1.0
+    if nperseg % 2 == 0:
+        sided[-1] = 1.0
+    scale = sided / (float(fs) * float(np.sum(win ** 2)))
+    return (torch.from_numpy(win.astype(np.float32)).to(device),
+            torch.from_numpy(scale.astype(np.float32)).to(device))
+
+
+def cremad_spectrogram(waveform: torch.Tensor, nperseg: int = 512,
+                       noverlap: int = 353, fs: int = 16000,
+                       standardize: bool = True,
+                       eps: float = 1e-7) -> torch.Tensor:
+    """(B, N) waveform -> (B, nperseg//2 + 1, T) fp32: the
+    scipy.signal.spectrogram PSD -> log -> per-clip standardisation of the
+    Crema-D and AVE offline pipelines (cremad/video_preprocessing.py:
+    234-238, ave/video_preprocessing.py:267-271, both at 16 kHz).
+
+    Every scipy.signal.spectrogram default the reference relies on:
+    periodic tukey(0.25) window, per-segment constant detrend, one-sided
+    density scaling, boundary=None/padded=False framing.  The DFT is
+    ``torch.fft.rfft`` in fp32 (the JAX package's is a matmul outside any
+    kernel).  The standardisation divides by the population std (ddof 0,
+    as ``jnp.std``) plus the reference's 1e-9."""
+    hop = nperseg - noverlap
+    frames = waveform.float().unfold(-1, nperseg, hop)       # (B, T, nperseg)
+    frames = frames - frames.mean(dim=-1, keepdim=True)      # detrend
+    win, scale = _psd_tables(nperseg, fs, frames.device)
+    spectrum = torch.fft.rfft(frames * win, dim=-1)          # (B, T, F)
+    power = (spectrum.real.square() + spectrum.imag.square()) * scale
+    out = torch.log(power.transpose(1, 2) + eps)             # (B, F, T)
+    if standardize:
+        mean = out.mean(dim=(1, 2), keepdim=True)
+        std = out.std(dim=(1, 2), keepdim=True, correction=0)
+        out = (out - mean) / (std + 1e-9)
+    return out.contiguous()

@@ -118,8 +118,15 @@ def test_registry_serves_vggsound():
     assert get_benchmark("vggsound") is vggsound
 
 
+@pytest.mark.parametrize("name", ["cremad", "ave"])
+def test_registry_serves_cremad_and_ave(name):
+    module = get_benchmark(name)
+    assert module.__name__.endswith(f"benchmarks.{name}")
+    assert callable(module.get_data) and callable(module.get_model_spec)
+
+
 @pytest.mark.parametrize("name,item", [
-    ("cremad", 10), ("ave", 10), ("avmnist", 12), ("mimic", 13),
+    ("avmnist", 12), ("mimic", 13),
     ("mustard", 13), ("enrico", 14), ("food101", 15), ("fakenews", 16)])
 def test_registry_raises_for_the_other_benchmarks(name, item):
     with pytest.raises(NotImplementedError, match=f"item {item}\\)"):

@@ -2,7 +2,9 @@
 log-spectrogram, the BN sums (forward and backward), the stored-index
 max-pool (forward and backward), and the tool probes' kernels (identity
 copy, one-pass BN stats, 3x3 conv), at ragged shapes, with the inputs they
-refuse and bit-identical repeat launches.
+refuse and bit-identical repeat launches; then the contracts' device code
+(the QMF History scatter, OGM-GE's modulation, ``cremad_spectrogram``)
+against the CPU.
 
 Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 false (decided inside the fixture, so every worker collects the same
@@ -536,3 +538,102 @@ def test_loader_producer_stops_when_abandoned_on_the_card():
         time.sleep(0.05)
     assert not any(t.name == "loader-producer"
                    for t in threading.enumerate())
+
+
+# -- the contracts' device code: QMF scatter, OGM-GE, Crema-D front end ----
+
+def test_qmf_history_update_drops_padded_duplicates_on_the_card():
+    """The loader's padded tail repeats the last real row, ``idx``
+    included; on the card the pad rows must not win the scatter."""
+    from multimodal_clinical_tpu_torch.algos import qmf
+
+    rng = np.random.default_rng(0)
+    corr = torch.from_numpy(rng.uniform(0.5, 2, 50).astype(np.float32))
+    conf = torch.from_numpy(rng.normal(size=50).astype(np.float32))
+    idx = torch.tensor([7, 0, 41, 5] + [3] * 60)
+    valid = (torch.arange(64) < 5).float()
+    batch_conf = torch.from_numpy(rng.normal(size=64).astype(np.float32))
+    loss = torch.tensor(1.37)
+    want = qmf.history_update(corr, conf, idx, loss, batch_conf, valid)
+    for _ in range(3):
+        got = qmf.history_update(*(t.cuda() for t in (
+            corr, conf, idx, loss, batch_conf, valid)))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert want[1][3] == batch_conf[4]
+
+
+def test_qmf_history_update_keeps_the_last_of_a_drawn_twice_idx_on_the_card():
+    """The sampler draws with replacement: a valid ``idx`` repeated in a
+    batch writes its last row's confidence on the card, every time, as on
+    the CPU."""
+    from multimodal_clinical_tpu_torch.algos import qmf
+
+    rng = np.random.default_rng(2)
+    corr = torch.from_numpy(rng.uniform(0.5, 2, 50).astype(np.float32))
+    conf = torch.from_numpy(rng.normal(size=50).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 8, 64))  # each idx ~8 times
+    valid = (torch.arange(64) < 60).float()
+    batch_conf = torch.from_numpy(rng.normal(size=64).astype(np.float32))
+    loss = torch.tensor(0.83)
+    want = qmf.history_update(corr, conf, idx, loss, batch_conf, valid)
+    last = {int(i): r for r, i in enumerate(idx[:60].tolist())}
+    for i, r in last.items():
+        assert want[1][i] == batch_conf[r]
+    for _ in range(3):
+        got = qmf.history_update(*(t.cuda() for t in (
+            corr, conf, idx, loss, batch_conf, valid)))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("modulation", ["OGM", "OGM_GE"])
+def test_modulate_gradients_on_the_card_matches_cpu(modulation):
+    """The same gradients, logits and noise on the card and on the CPU:
+    the coefficient and each std are fp32 reductions in another order."""
+    from multimodal_clinical_tpu_torch.algos import ogm_ge
+    from multimodal_clinical_tpu_torch.models.zoo import CremadFusionNet
+
+    rng = np.random.default_rng(1)
+    models = [CremadFusionNet(5, width=4), CremadFusionNet(5, width=4).cuda()]
+    noise = {}
+    for name, p in models[0].named_parameters():
+        p.grad = torch.from_numpy(rng.normal(scale=1e-2, size=p.shape)
+                                  .astype(np.float32))
+        noise[name] = torch.from_numpy(rng.normal(size=p.shape)
+                                       .astype(np.float32))
+    for (_, p), (_, q) in zip(models[0].named_parameters(),
+                              models[1].named_parameters()):
+        q.grad = p.grad.cuda()
+    x1, x2 = (torch.from_numpy(rng.normal(size=(8, 5)).astype(np.float32))
+              for _ in range(2))
+    label = torch.from_numpy(rng.integers(0, 5, 8))
+    valid = (torch.arange(8) < 6).float()
+    for model in models:
+        dev = next(model.parameters()).device
+        ogm_ge.modulate_gradients(
+            model, x1.to(dev), x2.to(dev), label.to(dev),
+            lambda name, g: noise[name].to(g.device), alpha=0.8,
+            modulation=modulation, valid=valid.to(dev))
+    for (name, p), (_, q) in zip(models[0].named_parameters(),
+                                 models[1].named_parameters()):
+        np.testing.assert_allclose(q.grad.cpu().numpy(), p.grad.numpy(),
+                                   rtol=1e-5, atol=1e-7, err_msg=name)
+
+
+def test_cremad_spectrogram_on_the_card_matches_cpu():
+    """cuFFT against the CPU's FFT, both fp32, at the (257, 1004)
+    geometry: the standardised log-power within 5e-5, as the CPU tests
+    hold the port's against the JAX function."""
+    from multimodal_clinical_tpu_torch.ops.spectrogram import (
+        cremad_spectrogram,
+    )
+
+    rng = np.random.default_rng(2)
+    wave = torch.from_numpy(rng.normal(scale=0.3, size=(3, 160000))
+                            .astype(np.float32))
+    got = cremad_spectrogram(wave.cuda())
+    assert got.shape == (3, 257, 1004) and got.is_cuda
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               cremad_spectrogram(wave).numpy(),
+                               rtol=0, atol=5e-5)

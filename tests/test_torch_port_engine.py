@@ -132,12 +132,25 @@ def test_resolve_dtype_maps_the_config_key():
         resolve_dtype(SimpleNamespace(compute_dtype="nosuch"))
 
 
-@pytest.mark.parametrize("contract", ["jlogits", "ensemble", "ogm_ge", "qmf"])
-def test_unported_contracts_raise_naming_the_roadmap_item(contract):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ModelSpec(module=torch.nn.Identity(), contract=contract)
+@pytest.mark.parametrize("contract", ["jlogits", "jprobas", "ensemble",
+                                      "ogm_ge", "qmf"])
+def test_every_contract_builds_its_spec(contract):
+    spec = ModelSpec(module=torch.nn.Identity(), contract=contract,
+                     n_train_samples=8)
+    assert spec.contract == contract
 
 
 def test_unknown_contract_is_a_value_error():
     with pytest.raises(ValueError):
         ModelSpec(module=torch.nn.Identity(), contract="nosuch")
+
+
+def test_step_generator_depends_on_seed_and_step():
+    """The JAX step folds the step into the run seed's key: another seed
+    or another step draws other masks, the same pair the same ones."""
+    draw = lambda seed, step: torch.rand(4, generator=state.step_generator(
+        seed, step))
+    assert torch.equal(draw(5, 3), draw(5, 3))
+    assert not torch.equal(draw(5, 3), draw(6, 3))
+    assert not torch.equal(draw(5, 3), draw(5, 4))
+    assert not torch.equal(draw(0, 1), draw(1, 0))

@@ -214,12 +214,17 @@ def test_cuda_wrappers_refuse_a_cpu_tensor(call):
         call()
 
 
-def test_vggsound_model_spec_is_jprobas_only():
-    args = SimpleNamespace(num_classes=3, compute_dtype="bfloat16")
+@pytest.mark.parametrize("model_type", ["jlogits", "jprobas", "ensemble"])
+def test_vggsound_model_spec_serves_its_three_types(model_type):
+    args = SimpleNamespace(num_classes=3, compute_dtype="bfloat16",
+                           model_type=model_type)
     spec, _ = vggsound.get_model_spec(args, n_train=10)
-    assert spec.contract == "jprobas"
+    assert spec.contract == model_type
     assert spec.device_preprocess is vggsound.device_preprocess
     assert spec.module.x1_classifier.dtype is torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 11"):
+
+
+def test_vggsound_model_spec_raises_for_an_unknown_type():
+    with pytest.raises(NotImplementedError, match="ogm_ge"):
         vggsound.get_model_spec(SimpleNamespace(num_classes=3,
-                                                model_type="jlogits"), 10)
+                                                model_type="ogm_ge"), 10)
