@@ -81,7 +81,20 @@ Phases, each of which raises on failure:
    --set model_type=qmf`` at full width on the synthetic twin, two epochs,
    then ``--resume`` for a third in process through the same entry point
    (``__main__.run_training``), whose restored History tables must equal
-   the saved ones; then ``--dir ave`` for one epoch.
+   the saved ones; then ``--dir ave`` for one epoch;
+16. the disk feed: corpora in the reference's layouts at the published
+   per-sample geometry, clip counts cut (``benchmarks/disk_fixture.py``:
+   VGGSound 448 + 224 clips of a 10 s wav and 10 JPEGs of 640 x 360;
+   Crema-D 128 + 64 clips with pickles, and again with wavs; AVE 128 + 64 +
+   64 clips with pickles), and which host decoders load; VGGSound jprobas
+   through ``get_data`` on its corpus at batch 224, two epochs of two
+   steps: the first batch on the card against its gather bit for bit, the
+   Loader alone, the epoch-2 step through it, the log-STFT's launches and
+   the kernel against its plain version on the disk waveforms; the CLI on
+   the corpus and ``--resume``; the Crema-D qmf CLI on the pickles and
+   ``--resume``, Crema-D ogm_ge on the wavs with ``pool_kernel="pallas"``
+   (both max-pool kernels counted), the AVE CLI on its pickles; stream
+   mode's spectrograms on the card against the CPU-made pickles.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; launches made to compare or time a kernel do not count.  The
@@ -2036,6 +2049,384 @@ def phase_contracts_cli(device):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 16: the disk feed --------------------------------------------------
+
+# the corpora's clip counts, cut from the real ones (PERF.md section 4); the
+# per-sample geometry is the published one (benchmarks/disk_fixture.py):
+# VGGSound 10 s wavs and 10 JPEGs of 640 x 360 at quality 93, Crema-D 2.5 s
+# wavs and 3 JPEGs of 480 x 360, AVE 10 JPEGs of 640 x 360
+DISK_VGGSOUND = (2 * BATCH, BATCH)        # train, test clips; 309 classes
+DISK_CREMAD = (128, 64)                   # train, test; the six emotions
+DISK_AVE = (128, 64, 64)                  # train, val, test; 28 events
+DISK_EPOCHS = 2
+# Crema-D's stream mode on the card against its CPU-made pickles: the same
+# cremad_spectrogram, an fp32 rfft on the card against one on the CPU
+# (another FFT, another order of sums) before the log and the per-clip
+# standardisation; held to 1e-4 of the largest entry
+DISK_SPEC_TOL = 1e-4
+DISK_DIR = WORK_DIR / "disk"
+
+
+def _host_decoders():
+    """{library: why it loads or not}, and the JPEG path a frame takes."""
+    import ctypes
+
+    from multimodal_clinical_tpu_torch.utils import avdecode, native
+
+    found = {}
+    for module in (native, avdecode):
+        name = os.path.basename(module.LIB_PATH)
+        try:
+            ctypes.CDLL(module.LIB_PATH)
+            found[name] = "loads"
+        except OSError as exc:
+            found[name] = f"does not load ({exc})"
+        if (found[name] == "loads") != module.available():
+            raise AssertionError(f"{name}: {found[name]}, but available() "
+                                 f"is {module.available()}")
+    frame = next((DISK_DIR / "vggsound" / "frames").glob("*/0000.jpg"))
+    jpeg = ("native libjpeg" if native.jpeg_dims(str(frame)) is not None
+            else "PIL")
+    return found, jpeg
+
+
+def phase_disk_build():
+    """Phase 16a: the corpora in the reference's layouts (VGGSound,
+    Crema-D with pickles and with wavs, AVE with pickles) under
+    ``DISK_DIR``; a few dozen distinct files, each written under many
+    clips' names."""
+    from multimodal_clinical_tpu_torch.benchmarks import disk_fixture as df
+
+    shutil.rmtree(DISK_DIR, ignore_errors=True)
+    trees = {name: str(DISK_DIR / name) + "/" for name in (
+        "vggsound", "cremad_pkl", "cremad_stream", "ave_pkl")}
+    t = time.perf_counter()
+    made = {
+        "vggsound": df.build_vggsound_tree(trees["vggsound"], *DISK_VGGSOUND,
+                                           CLASSES),
+        "cremad_pkl": df.build_cremad_tree(trees["cremad_pkl"], *DISK_CREMAD,
+                                           "pkl"),
+        "cremad_stream": df.build_cremad_tree(trees["cremad_stream"],
+                                              *DISK_CREMAD, "stream"),
+        "ave_pkl": df.build_ave_tree(trees["ave_pkl"], *DISK_AVE, "pkl"),
+    }
+    log(f"[disk] corpora written in {time.perf_counter() - t:.1f} s: "
+        + ", ".join(f"{k} {v['clips']} clips {v['bytes'] / 1e6:.1f} MB"
+                    for k, v in made.items())
+        + " (read back from the page cache: no disk reads are timed)")
+    return trees
+
+
+def _check_first_batch(loader, dataset, what: str):
+    """The first batch of epoch 0 as it reaches the card through the pinned
+    side-stream copy equals the dataset's gather at the sampler's indices,
+    bit for bit; returns the gather."""
+    loader.set_epoch(0)
+    idx = np.asarray(loader.sampler.indices(0))[:loader.batch_size]
+    it = iter(loader)
+    batch = next(it)
+    torch.cuda.synchronize()
+    it.close()
+    want = dataset.gather(idx)
+    if not np.array_equal(batch["idx"].cpu().numpy(), idx):
+        raise AssertionError(f"{what}: first batch idx differ")
+    for key, arr in want.items():
+        got = batch[key]
+        if got.device != loader.device or not np.array_equal(
+                got.cpu().numpy(), arr):
+            raise AssertionError(f"{what}: first batch {key} differs from "
+                                 "the gather")
+    log(f"[disk] {what}: the first train batch on the card equals the "
+        f"gather at the sampler's indices bit for bit "
+        f"({', '.join(f'{k} {tuple(v.shape)} {v.dtype}' for k, v in want.items())})")
+    return want
+
+
+def _host_breakdown(dataset, loader, card: str, host_ms: float) -> None:
+    """Where a VGGSound host batch goes, on this thread alone, over the
+    first 32 clips of epoch 1: a wav read, a frame's decode (PIL's open
+    and RGB convert alone), a frame's whole train transform, a clip's
+    gather; then what the Loader's threads made of it."""
+    from multimodal_clinical_tpu_torch.benchmarks import vggsound
+    from multimodal_clinical_tpu_torch.data.core import sample_rng
+    from multimodal_clinical_tpu_torch.data.imageops import (
+        _pil_open, load_frame_train_u8,
+    )
+
+    sub = np.asarray(loader.sampler.indices(1))[:32]
+    clips = [dataset.items[int(i)][0] for i in sub]
+    frames = [str(p) for c in clips for p in sorted(
+        (Path(dataset.data_dir) / "frames" / c).iterdir())[:4]]
+    t = time.perf_counter()
+    for c in clips:
+        vggsound._read_audio(dataset.data_dir, c)
+    wav_ms = (time.perf_counter() - t) * 1e3 / len(clips)
+    t = time.perf_counter()
+    for f in frames:
+        _pil_open(f)
+    decode_ms = (time.perf_counter() - t) * 1e3 / len(frames)
+    t = time.perf_counter()
+    for k, f in enumerate(frames):
+        load_frame_train_u8(f, sample_rng(0, 1, k))
+    frame_ms = (time.perf_counter() - t) * 1e3 / len(frames)
+    dataset.set_epoch(1)
+    t = time.perf_counter()
+    dataset.gather(sub)
+    clip_ms = (time.perf_counter() - t) * 1e3 / len(sub)
+    one_thread = clip_ms * loader.batch_size
+    log(f"[disk] {card}: one thread, 32 clips: a 10 s wav {wav_ms:.2f} ms; "
+        f"a 640 x 360 JPEG frame {frame_ms:.2f} ms through the train "
+        f"transform, {decode_ms:.2f} ms of it PIL's decode; a clip's gather "
+        f"(wav, crop, {dataset.use_video_frames} frames) {clip_ms:.2f} ms, "
+        f"{one_thread:.0f} ms a batch of {loader.batch_size}; the Loader's "
+        f"{loader.workers} threads made it in {host_ms:.0f} ms, "
+        f"{one_thread / host_ms:.2f}x one thread ({os.cpu_count()} cores, "
+        f"{len(os.sched_getaffinity(0))} usable)")
+
+
+def phase_disk_vggsound(device, card: str, trees, kernels):
+    """Phase 16b: VGGSound jprobas through ``get_data`` on the disk corpus
+    at batch 224, two epochs of two steps, with the config's loader
+    threads: the Loader alone, the epoch-2 step through it, the log-STFT's
+    launches; the first batch on the card against its gather, the log-STFT
+    against its plain version on disk waveforms; then the CLI on the
+    corpus, and ``--resume`` for a third epoch."""
+    from multimodal_clinical_tpu_torch.benchmarks import vggsound
+    from multimodal_clinical_tpu_torch.config import load_config
+    from multimodal_clinical_tpu_torch.engine import run
+    from multimodal_clinical_tpu_torch.ops import cuda_spectrogram as cs
+    from multimodal_clinical_tpu_torch.ops import spectrogram as plain
+
+    decoders, jpeg = _host_decoders()
+    log(f"[disk] host decoders: {decoders}; JPEG frames decode through "
+        f"{jpeg}")
+    work = DISK_DIR / "runs"
+    args = load_config("vggsound", overrides=dict(
+        num_epochs=DISK_EPOCHS, ckpt_dir=str(work), data_path=trees[
+            "vggsound"]))
+    workers = run.resolve_loader_workers(args)
+    data = vggsound.get_data(args)
+    if data.synthetic or not isinstance(data.train,
+                                        vggsound.VGGSoundDiskDataset):
+        raise AssertionError("get_data did not read the disk corpus")
+    train_loader = run.build_loaders(args, data, device)[0]
+    first = _check_first_batch(train_loader, data.train, "VGGSound")
+
+    # the Loader alone, two epochs' batches: the host batch (gathers on the
+    # threads, pad, cast), then with the pinning and the copy to the card
+    t = time.perf_counter()
+    n = 0
+    for epoch in (1, 2):
+        train_loader.set_epoch(epoch)
+        n += sum(1 for _ in train_loader._host_batches())
+    host_ms = (time.perf_counter() - t) * 1e3 / n
+    t = time.perf_counter()
+    for epoch in (1, 2):
+        train_loader.set_epoch(epoch)
+        for _ in train_loader:
+            pass
+    torch.cuda.synchronize()
+    feed_ms = (time.perf_counter() - t) * 1e3 / n
+    log(f"[disk] {card}: the Loader alone on the VGGSound corpus, {n} "
+        f"batches of {BATCH}, {workers} gather threads: host batch "
+        f"{host_ms:.2f} ms, with pinning and the copy to the card "
+        f"{feed_ms:.2f} ms a batch")
+
+    _host_breakdown(data.train, train_loader, card, host_ms)
+
+    wave = torch.from_numpy(first["x1_waveform"]).to(device)
+    max_err, clear_err = compare_spectrogram(
+        cs.launch_log_spectrogram(wave, 256, 128),
+        plain.log_spectrogram(wave, 256, 128))
+    log(f"[kernels] log_spectrogram on the first batch's disk waveforms "
+        f"{tuple(wave.shape)}: max |log err| {max_err:.3e}, in clear bins "
+        f"{clear_err:.3e}")
+    del wave, first
+
+    ends, seen = [], {}
+
+    class TimedTrainer(run.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["trainer"] = self
+            step = self.train_step
+
+            def timed(state, batch):
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                ends.append((self.train_loader._epoch, time.perf_counter()))
+                return state, metrics
+
+            self.train_step = timed
+
+    shutil.rmtree(work, ignore_errors=True)
+    module = SimpleNamespace(get_data=lambda _: data,
+                             get_model_spec=vggsound.get_model_spec)
+    trainer_cls, run.Trainer = run.Trainer, TimedTrainer
+    torch.cuda.reset_peak_memory_stats()
+    cs.launch_log_spectrogram.launches = 0
+    try:
+        t = time.perf_counter()
+        summary = run.run_benchmark(args, module, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        run.Trainer = trainer_cls
+    launches = cs.launch_log_spectrogram.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer = seen["trainer"]
+    steps = {split: len(getattr(trainer, f"{split}_loader"))
+             for split in ("train", "val", "test")}
+    expected = DISK_EPOCHS * (steps["train"] + steps["val"]) + steps["test"]
+    if launches != expected:
+        raise AssertionError(f"[disk] log_spectrogram launched {launches} "
+                             f"times, expected {expected} ({steps})")
+    losses = [h["train_epoch/train_avg_loss"] for h in trainer.history]
+    if not all(math.isfinite(x) for x in losses) or not math.isfinite(
+            summary["test_epoch/test_avg_loss"]):
+        raise AssertionError(f"non-finite losses: {losses}, {summary}")
+    last = [t for e, t in ends if e == DISK_EPOCHS - 1]
+    if len(ends) != DISK_EPOCHS * steps["train"] or len(last) < 2:
+        raise AssertionError(f"timed {len(ends)} train steps")
+    step_ms = [(b - a) * 1e3 for a, b in zip(last, last[1:])]
+    median = statistics.median(step_ms)
+    epoch_s = trainer.history[-1]["train_epoch/epoch_time_sec"]
+    log(f"[disk] {card}: VGGSound jprobas on the disk corpus ({steps}), "
+        f"{launches} log_spectrogram launches, as its steps; train losses "
+        f"{losses}; test loss {summary['test_epoch/test_avg_loss']:.5f}; "
+        f"run {wall:.1f} s")
+    log(f"[disk] {card}: epoch-2 train step through the Loader "
+        f"{median:.2f} ms (each {', '.join(f'{m:.2f}' for m in step_ms)}), "
+        f"{BATCH / median * 1e3:.1f} samples/s; the whole epoch "
+        f"{epoch_s * 1e3 / steps['train']:.2f} ms a step with its start; "
+        f"peak memory {peak:.2f} GiB")
+    for entry in kernels:
+        if entry["name"] == "log_spectrogram":
+            entry.setdefault("launches_by_path", {})["vggsound_disk"] = (
+                launches)
+    del trainer, seen, data, train_loader
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(work, ignore_errors=True)
+    base = ["--set", f"ckpt_dir={work}", "--set",
+            f"data_path={trees['vggsound']}"]
+    out = _cli(base + ["--set", f"num_epochs={DISK_EPOCHS}"])
+    summary = ast.literal_eval(out.strip().splitlines()[-1])
+    if not math.isfinite(summary.get("test_epoch/test_avg_acc", math.nan)):
+        raise AssertionError(f"no test_epoch/test_avg_acc: {summary}")
+    out = _cli(base + ["--set", f"num_epochs={DISK_EPOCHS + 1}", "--resume"])
+    done = DISK_EPOCHS * steps["train"]
+    meta = json.loads((work / RUN_NAME / "ckpt" / "meta.json").read_text())
+    if (f"[trainer] resumed from step {done}" not in out
+            or meta["epochs_done"] != DISK_EPOCHS + 1):
+        raise AssertionError(f"--resume on the disk corpus: meta {meta}")
+    log(f"[cli] vggsound on the disk corpus: {DISK_EPOCHS} epochs, then "
+        f"--resume from step {done} for one more; test_avg_acc "
+        f"{summary['test_epoch/test_avg_acc']:.4f}")
+
+
+def phase_disk_contracts(device, card: str, trees, kernels):
+    """Phase 16c-d: the Crema-D qmf CLI on the pickle corpus for two epochs
+    and ``--resume`` for a third; Crema-D ogm_ge on the wav corpus (stream
+    mode, spectrogram on the card) for one epoch with
+    ``pool_kernel="pallas"``, both max-pool kernels counted; the AVE CLI on
+    its pickle corpus for one epoch; then stream mode's spectrograms on the
+    card against the pickles of the same clips."""
+    import dataclasses
+
+    from multimodal_clinical_tpu_torch.benchmarks import cremad
+    from multimodal_clinical_tpu_torch.config import load_config
+    from multimodal_clinical_tpu_torch.engine import run
+    from multimodal_clinical_tpu_torch.models.zoo import CremadFusionNet
+
+    work = DISK_DIR / "runs"
+    shutil.rmtree(work, ignore_errors=True)
+    steps = -(-DISK_CREMAD[0] // FULL_BATCH)
+    qmf = ["--set", f"ckpt_dir={work}", "--set",
+           f"data_path={trees['cremad_pkl']}", "--set", "model_type=qmf"]
+    out = _cli(qmf + ["--set", "num_epochs=2"], bench="cremad")
+    summary = ast.literal_eval(out.strip().splitlines()[-1])
+    if not math.isfinite(summary.get("test_epoch/test_avg_df_acc",
+                                     math.nan)):
+        raise AssertionError(f"no test_epoch/test_avg_df_acc: {summary}")
+    out = _cli(qmf + ["--set", "num_epochs=3", "--resume"], bench="cremad")
+    meta = json.loads((work / "cremad_cls6" / "ckpt" / "meta.json")
+                      .read_text())
+    if (f"[trainer] resumed from step {2 * steps}" not in out
+            or meta["epochs_done"] != 3):
+        raise AssertionError(f"cremad --resume on the pickles: meta {meta}")
+    log(f"[cli] cremad qmf on the pickle corpus: two epochs, then --resume "
+        f"from step {2 * steps} for a third")
+
+    out = _cli(["--set", f"ckpt_dir={work}", "--set",
+                f"data_path={trees['ave_pkl']}", "--set", "num_epochs=1"],
+               bench="ave")
+    summary = ast.literal_eval(out.strip().splitlines()[-1])
+    rows = _epoch_rows(work / "ave_cls28_jprobas_seeds")
+    if (not math.isfinite(summary.get("avg_test_acc", math.nan))
+            or [r["epoch"] for r in rows] != [0, -1]):
+        raise AssertionError(f"ave: summary {summary}, rows {rows}")
+    log(f"[cli] ave on the pickle corpus, one epoch: test_avg_acc "
+        f"{summary['test_epoch/test_avg_acc']:.4f}")
+
+    # ogm_ge, stream mode, the stored-index max-pool: two launches each way
+    # a train step (one per tower's stem), none in eval
+    seen = {}
+
+    def get_data(args):
+        seen["data"] = cremad.get_data(args)
+        return seen["data"]
+
+    def get_model_spec(args, n_train):
+        spec, kw = cremad.get_model_spec(args, n_train)
+        return dataclasses.replace(spec, module=CremadFusionNet(
+            int(args.num_classes), dtype=spec.module.x1_classifier.dtype,
+            pool_kernel="pallas")), kw
+
+    args = load_config("cremad", overrides=dict(
+        model_type="ogm_ge", num_epochs=1, ckpt_dir=str(work / "ogm"),
+        data_path=trees["cremad_stream"]))
+    launchers = _all_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    summary = run.run_benchmark(args, SimpleNamespace(
+        get_data=get_data, get_model_spec=get_model_spec), device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in launchers.items()}
+    expected = {"maxpool_fwd": 2 * steps, "maxpool_bwd": 2 * steps}
+    if (seen["data"].train.audio_mode != "stream"
+            or launches != {n: expected.get(n, 0) for n in launches}
+            or not math.isfinite(summary["test_epoch/test_avg_loss"])):
+        raise AssertionError(f"cremad ogm_ge stream pool_kernel='pallas': "
+                             f"launches {launches}, summary {summary}")
+    log(f"[disk] {card}: cremad ogm_ge on the wav corpus (spectrogram on the "
+        f"card), pool_kernel='pallas', one epoch of {steps} steps in "
+        f"{wall:.1f} s: launches {launches}")
+    for entry in kernels:
+        if entry["name"] in expected:
+            entry.setdefault("launches_by_path", {})[
+                "cremad_ogm_ge_disk_stream_pallas"] = launches[entry["name"]]
+
+    # stream mode's spectrogram on the card against the CPU-made pickles
+    idx = np.arange(FULL_BATCH)
+    pkl = cremad.get_data(SimpleNamespace(data_path=trees["cremad_pkl"],
+                                          seed=5, num_classes=6))
+    want = torch.from_numpy(pkl.train.gather(idx)["x1"][..., 0])
+    wave = seen["data"].train.gather(idx)["x1_waveform"]
+    got = cremad.cremad_spectrogram(torch.from_numpy(wave).to(device)).cpu()
+    gap = float((got - want).abs().max()) / float(want.abs().max())
+    if got.shape != (FULL_BATCH, 257, 1004) or not gap <= DISK_SPEC_TOL:
+        raise AssertionError(f"stream spectrogram {tuple(got.shape)} differs "
+                             f"from the pickles by {gap:.3e} of the largest "
+                             "entry")
+    log(f"[disk] Crema-D stream mode: the card's (257, 1004) spectrograms of "
+        f"{FULL_BATCH} clips against their CPU-made pickles: max gap "
+        f"{gap:.3e} of the largest entry (limit {DISK_SPEC_TOL:g})")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -2058,6 +2449,12 @@ def main() -> int:
     phase_contracts_card_against_cpu(device)
     phase_full_width(device, card, kernels)
     phase_contracts_cli(device)
+    try:
+        trees = phase_disk_build()
+        phase_disk_vggsound(device, card, trees, kernels)
+        phase_disk_contracts(device, card, trees, kernels)
+    finally:
+        shutil.rmtree(DISK_DIR, ignore_errors=True)
     missing = [e["name"] for e in kernels if not e["launches"]]
     if missing:
         raise AssertionError(f"kernels not launched on their path: {missing}")

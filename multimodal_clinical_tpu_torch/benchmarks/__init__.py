@@ -24,14 +24,6 @@ _NOT_PORTED = {
 }
 
 
-def disk_data_not_ported(path: str, name: str) -> NotImplementedError:
-    """The error a benchmark's ``get_data`` raises where its disk dataset
-    is present: the port serves the synthetic twins only."""
-    return NotImplementedError(
-        f"{path}: the {name} disk dataset is not ported yet (ROADMAP.md "
-        "queue A, item 8b)")
-
-
 def get_benchmark(name: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(

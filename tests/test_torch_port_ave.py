@@ -127,7 +127,11 @@ def test_ave_get_data_serves_the_jax_twin(tmp_path, monkeypatch):
 
 
 def test_ave_get_data_raises_naming_item_8b_for_the_disk_dataset(tmp_path):
+    """A split list that admits no clip raises the JAX package's error in
+    both packages (the disk dataset is ported; the name is kept)."""
     (tmp_path / "testSet.txt").write_text("Church bell&clip&good&0&10\n")
     args = SimpleNamespace(num_classes=28, data_path=str(tmp_path) + "/")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        ave.get_data(args)
+    for module in (ave, jax_ave):
+        with pytest.raises(FileNotFoundError,
+                           match="trainSet.txt: 0 clips admitted"):
+            module.get_data(args)

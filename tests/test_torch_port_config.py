@@ -179,10 +179,14 @@ def test_vggsound_get_data_equals_jax(monkeypatch, tmp_path):
 
 
 def test_vggsound_disk_dataset_raises(tmp_path):
+    """An empty ``vggsound.csv`` admits no clip: the JAX package's error in
+    both packages."""
     (tmp_path / "vggsound.csv").write_text("")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        vggsound.get_data(SimpleNamespace(num_classes=309,
-                                          data_path=str(tmp_path)))
+    args = SimpleNamespace(num_classes=309, data_path=str(tmp_path) + "/")
+    for module in (vggsound, jax_vggsound):
+        with pytest.raises(FileNotFoundError,
+                           match="0 train clips were admitted"):
+            module.get_data(args)
 
 
 def test_vggsound_spec_fields_equal_jax():

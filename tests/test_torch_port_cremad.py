@@ -166,7 +166,12 @@ def test_get_data_serves_the_jax_twin(tmp_path, monkeypatch):
 
 
 def test_get_data_raises_naming_item_8b_for_the_disk_dataset(tmp_path):
+    """Split files that admit no clip raise the JAX package's error in
+    both packages (the disk dataset is ported; the name is kept)."""
     (tmp_path / "train.csv").write_text("clip,label\n")
+    (tmp_path / "test.csv").write_text("clip,label\n")
     args = SimpleNamespace(num_classes=6, data_path=str(tmp_path) + "/")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        cremad.get_data(args)
+    for module in (cremad, jax_cremad):
+        with pytest.raises(FileNotFoundError,
+                           match="train.csv exists but 0 clips were admitted"):
+            module.get_data(args)

@@ -637,3 +637,40 @@ def test_cremad_spectrogram_on_the_card_matches_cpu():
     np.testing.assert_allclose(got.cpu().numpy(),
                                cremad_spectrogram(wave).numpy(),
                                rtol=0, atol=5e-5)
+
+
+def test_disk_batches_through_the_loader_equal_their_gathers(tmp_path):
+    """A VGGSound disk corpus through the Loader on the card (3 gather
+    threads, pinned host batches copied on its side stream): every batch
+    of an epoch, its padded tail included, equals the dataset's gather at
+    the sampler's indices bit for bit."""
+    from types import SimpleNamespace
+
+    from multimodal_clinical_tpu_torch.benchmarks import (
+        disk_fixture, vggsound,
+    )
+    from multimodal_clinical_tpu_torch.data.loader import Loader
+    from multimodal_clinical_tpu_torch.data.sampler import WeightedSampler
+
+    tree = str(tmp_path) + "/"
+    disk_fixture.build_vggsound_tree(tree, 12, 4, 3, n_frames=4,
+                                     seconds=1.0, frame_size=(64, 48),
+                                     distinct=4)
+    data = vggsound.get_data(SimpleNamespace(data_path=tree, seed=1,
+                                             num_classes=3))
+    sampler = WeightedSampler(data.train.labels, seed=1)
+    loader = Loader(data.train, 8, sampler, workers=3, device="cuda")
+    loader.set_epoch(1)
+    idx = np.asarray(sampler.indices(1))
+    batches = list(loader)
+    torch.cuda.synchronize()
+    assert len(batches) == 2
+    for start, batch in zip(range(0, len(idx), 8), batches):
+        chunk = idx[start:start + 8]
+        want = data.train.gather(chunk)
+        assert batch["valid"].sum().item() == len(chunk)
+        for key, arr in want.items():
+            got = batch[key]
+            assert got.is_cuda
+            np.testing.assert_array_equal(got[:len(chunk)].cpu().numpy(),
+                                          arr, err_msg=key)

@@ -56,10 +56,17 @@ def _imported_roots(path):
     return roots
 
 
+# PIL decodes frames where the JAX package uses it (its
+# ``data/imageops.py``) and encodes the disk corpora's JPEGs; in both only
+# inside the functions that need it, so no import of the port loads it
+PIL_MODULES = {"data/imageops.py", "benchmarks/disk_fixture.py"}
+
+
 @pytest.mark.parametrize("rel", MODULES)
 def test_module_imports_nothing_of_jax(rel):
+    allowed = {"PIL"} if rel in PIL_MODULES else set()
     for name in _imported_roots(PACKAGE / rel):
-        assert name not in FORBIDDEN, (rel, name)
+        assert name not in FORBIDDEN - allowed, (rel, name)
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -102,6 +109,25 @@ def test_native_binding_never_spawns_make(monkeypatch):
     native.available()  # loads the library or reports it unavailable
     assert native._tried
     assert "subprocess" not in _imported_roots(PACKAGE / "utils/native.py")
+
+
+def test_avdecode_binding_never_spawns_make(monkeypatch):
+    """As the native binding: ``native/libavdecode.so`` is loaded as it
+    is, or reported unavailable, and never built."""
+    import subprocess as sp
+
+    from multimodal_clinical_tpu_torch.utils import avdecode
+
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"spawned {args[0] if args else kwargs}")
+
+    for name in ("run", "Popen", "call", "check_call", "check_output"):
+        monkeypatch.setattr(sp, name, refuse)
+    monkeypatch.setattr(avdecode, "_lib", None)
+    monkeypatch.setattr(avdecode, "_tried", False)
+    avdecode.available()
+    assert avdecode._tried
+    assert "subprocess" not in _imported_roots(PACKAGE / "utils/avdecode.py")
 
 
 @pytest.fixture
