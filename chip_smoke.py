@@ -94,12 +94,37 @@ Phases, each of which raises on failure:
    the corpus and ``--resume``; the Crema-D qmf CLI on the pickles and
    ``--resume``, Crema-D ogm_ge on the wavs with ``pool_kernel="pallas"``
    (both max-pool kernels counted), the AVE CLI on its pickles; stream
-   mode's spectrograms on the card against the CPU-made pickles.
+   mode's spectrograms on the card against the CPU-made pickles;
+17. AV-MNIST, MIMIC and MUsTARD: (a) AV-MNIST jlogits (plain SGD), MIMIC
+   jprobas (Adam, at 1e-2 and at the config's 0.1) and jlogits (SGD with
+   momentum) and MUsTARD jlogits (Adam, three towers) for two train steps
+   on the card and on the CPU from the same weights, the second batch with
+   a padded tail: losses, BN buffers and EMA in fp32, updates and
+   optimizer state in float64 (under Adam, the updates where both devices'
+   gradient entries agree; at 0.1 the second loss to a looser limit,
+   beside its witness, the CPU against itself with the classes permuted);
+   then, at the settings a process starts with (cuDNN TF32 on, every CPU
+   thread), per benchmark, its launch counts set to 0 first and read last:
+   (b) every model type at the published geometry (batch 32; 28 x 28 and
+   112 x 112; 5 and 24 x 12; 40 x {371, 81, 300} in fp32), a warm-up step,
+   timed steps, an eval step and one profiled step (the device's busy time
+   in it, and its idle share of the median step); (c) the CLI on
+   the twin for two epochs (``python3 -m multimodal_clinical_tpu_torch
+   --dir mustard`` as a subprocess; AV-MNIST's and MIMIC's
+   ``__main__.run_training`` in process), ``--resume`` for a third in
+   process (the restored optimizer state, EMA and QMF tables equal the
+   saved ones), every other model type for one epoch in process; (d) the
+   files of
+   ``benchmarks/array_fixture.py`` (AV-MNIST's six ``.npy`` at 55 320 + 320
+   rows, MIMIC's ``im.pk``, MUsTARD's ``sarcasm.pkl``) through ``get_data``
+   for one CLI epoch.  No TPU kernel lies on these paths: each must record 0
+   launches.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; launches made to compare or time a kernel do not count.  The
 kernels' line gives each kernel's launches on the main path as
-``launches`` and on the later paths under ``launches_by_path``; the
+``launches`` and on the later paths under ``launches_by_path`` (0 on
+AV-MNIST's, MIMIC's and MUsTARD's); the
 max-pool's entries list the shapes checked on the phase 14 path under
 ``checked_shapes_by_path``.
 
@@ -416,8 +441,9 @@ def _check_bn_module(stem, device):
     the largest entry, the weight and bias gradients to SUM_RTOL of their
     terms' magnitude.  Returns the errors of y and dx, and the largest
     absolute and relative errors of the parameter gradients."""
-    from multimodal_clinical_tpu_torch.models.common import FusedBatchNorm
-    from multimodal_clinical_tpu_torch.models.resnet import _BN
+    from multimodal_clinical_tpu_torch.models.common import (
+        FusedBatchNorm, TorchBatchNorm,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     x, noise = (torch.randn(stem, device=device, dtype=torch.bfloat16,
@@ -429,7 +455,7 @@ def _check_bn_module(stem, device):
     dy = noise.add(x, alpha=0.5)
     c = stem[-1]
     fused = FusedBatchNorm(c, torch.bfloat16).to(device)
-    default = _BN(c, torch.bfloat16).to(device)
+    default = TorchBatchNorm(c, torch.bfloat16).to(device)
     default.load_state_dict(fused.state_dict())
     got = {}
     for name, module in (("default", default), ("fused", fused)):
@@ -2427,6 +2453,532 @@ def phase_disk_contracts(device, card: str, trees, kernels):
     shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 17: AV-MNIST, MIMIC and MUsTARD ------------------------------------
+
+# the three benchmarks' classes and per-sample shapes (configs/*.yaml,
+# data/synthetic.py); AV-MNIST's inputs are pixel values / 255
+SMALL_BENCHES = {
+    "avmnist": (10, [(28, 28, 1), (112, 112, 1)]),
+    "mimic": (6, [(5,), (24, 12)]),
+    "mustard": (2, [(40, 371), (40, 81), (40, 300)]),
+}
+# 17a: card against CPU, two steps of SMALL_ROWS rows (the second with
+# SMALL_VALID real ones) from the same weights, at the published geometry;
+# each case's learning rate is the config's, capped at SMALL_CPU_LR (phase
+# 13's) where it is a float, and the config's own (MIMIC's 0.1) where None
+SMALL_CPU_LR = 1e-2
+SMALL_CASES = (("avmnist", "jlogits", SMALL_CPU_LR),
+               ("mimic", "jprobas", SMALL_CPU_LR), ("mimic", "jprobas", None),
+               ("mimic", "jlogits", SMALL_CPU_LR),
+               ("mustard", "jlogits", SMALL_CPU_LR))
+SMALL_ROWS, SMALL_VALID, SMALL_TABLE = 6, 4, 12
+# Adam at MIMIC's 0.1 moves the entries whose gradient is within rounding
+# of zero by up to 0.1 each, differently on each device, and the second
+# step's float64 loss carries that: card against CPU 2.4e-6 and 8.4e-7
+# apart on the H100 in two runs, under F64_LOSS_RTOL at 1e-2.  Its
+# witness, logged beside it: the CPU against itself with the classes
+# permuted (SMALL_PERMS), the same training with the fp32 loss summed over
+# the classes in another order, 1.9e-7 to 5.6e-7 apart at 0.1 and 0 at 1e-2
+ADAM_RATE_LOSS_RTOL = 1e-5
+SMALL_PERMS = ((5, 4, 3, 2, 1, 0), (1, 2, 3, 4, 5, 0), (3, 0, 4, 1, 5, 2))
+# Adam moves an entry by lr * m / (sqrt(v) + eps) whatever its gradient's
+# size, and the loss is fp32 by design (so are its logit gradients in the
+# float64 runs): where a step's gradient entry is within that rounding of
+# zero, card and CPU move it by different shares of the learning rate.  The
+# updates under Adam are held where both devices' gradient entries agree to
+# ADAM_GRAD_RTOL at both steps, at least ADAM_HELD_SHARE of each tensor,
+# where a gradient's share of rounding moves its update by at most
+# lr * ADAM_GRAD_RTOL / 4, inside F64_TOL; the moments everywhere
+ADAM_GRAD_RTOL, ADAM_HELD_SHARE = 1e-4, 0.9
+# 17b: the published batch (configs/{avmnist,mimic,mustard}.yaml), its
+# last SMALL_BATCH_VALID rows real in the warm-up step's batch; the QMF
+# History at MIMIC's train split, 80% of its 36 212 admissions
+SMALL_BATCH, SMALL_BATCH_VALID, SMALL_TIMED = 32, 28, 20
+MIMIC_TRAIN = 28970
+# 17c: the model type each benchmark's two-epoch CLI and --resume run; the
+# benchmark whose two-epoch run is a ``python3 -m`` subprocess (a fresh
+# process takes ~20 s to start on the card; the others call the same
+# ``__main__.run_training`` in process)
+SMALL_CLI = {"avmnist": "jlogits", "mimic": "qmf", "mustard": "jlogits"}
+SMALL_CLI_PROCESS = "mustard"
+# 17d: the files' row counts, cut from the real ones (AV-MNIST 60 000 +
+# 10 000 of which 55 000 train, MIMIC 36 212, MUsTARD 690)
+SMALL_FILES = {"avmnist": (55000 + 320, 320), "mimic": 4096,
+               "mustard": (256, 64, 64)}
+
+
+def _small_batches(bench: str, dev, rows: int, valid, table: int):
+    """Train batches of ``rows`` at ``bench``'s per-sample geometry from
+    numpy's seed-0 generator, one per entry of ``valid`` (its count of real
+    rows; the rest repeat the last real one, ``idx`` included), with
+    distinct ``idx`` below ``table``."""
+    classes, shapes = SMALL_BENCHES[bench]
+    rng = np.random.default_rng(0)
+    ids = rng.permutation(table)
+    out = []
+    for step, real in enumerate(valid):
+        pick = np.arange(rows).clip(max=real - 1)
+        batch = {}
+        for i, shape in enumerate(shapes):
+            x = (rng.random((rows,) + shape) if bench == "avmnist"
+                 else rng.normal(size=(rows,) + shape))
+            batch[f"x{i + 1}"] = x.astype(np.float32)[pick]
+        batch["label"] = rng.integers(0, classes, rows)[pick]
+        batch["idx"] = ids[(step * rows) % table:][:rows][pick]
+        batch["valid"] = (np.arange(rows) < real).astype(np.float32)
+        out.append({k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    for k, v in batch.items()})
+    return out
+
+
+def _small_state(bench: str, model_type: str, dev, n_train: int,
+                 **overrides):
+    """(spec, state, args) of ``bench``'s ``model_type`` from its config,
+    its spec and optimizer arguments, seed-0 weights."""
+    import importlib
+
+    from multimodal_clinical_tpu_torch.config import load_config
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+
+    module = importlib.import_module(
+        f"multimodal_clinical_tpu_torch.benchmarks.{bench}")
+    args = load_config(bench, overrides=dict(model_type=model_type,
+                                             **overrides))
+    spec, opt = module.get_model_spec(args, n_train=n_train)
+    state = create_train_state(spec, args, 0, steps_per_epoch=100,
+                               device=dev, **opt)
+    return spec, state, args
+
+
+def _small_lr(bench: str, cap) -> float:
+    """``bench``'s configured learning rate, capped at ``cap`` unless None."""
+    from multimodal_clinical_tpu_torch.config import load_config
+
+    lr = float(load_config(bench).learning_rate)
+    return lr if cap is None else min(lr, cap)
+
+
+def _small_steps(dev, dtype, bench: str, model_type: str, lr: float,
+                 perm=None):
+    """Two train steps of ``bench``'s ``model_type`` in fp32 compute
+    (``dtype`` the parameters' and inputs'): losses, the initial and final
+    state_dict, each step's gradients, the optimizer's per-parameter state
+    and the EMA, on the CPU.  ``perm``, a permutation of the classes, is
+    applied to the net's logits and the labels: the same training, its
+    fp32 loss summed over the classes in another order."""
+    from multimodal_clinical_tpu_torch.engine.steps import make_train_step
+
+    spec, state, _ = _small_state(bench, model_type, dev, SMALL_TABLE,
+                                  compute_dtype="float32", learning_rate=lr)
+    state.model.to(dtype)
+    if perm is not None:
+        perm = torch.as_tensor(perm, device=dev)
+        state.model.register_forward_hook(lambda m, args, out: {
+            **out, "logits": [x[:, perm] for x in out["logits"]]})
+    cpu = lambda t: t.detach().cpu().clone()
+    init = {k: cpu(v) for k, v in state.model.state_dict().items()}
+    step = make_train_step(spec)
+    named = dict(state.model.named_parameters())
+    losses, grads = [], []
+    for batch in _small_batches(bench, dev, SMALL_ROWS,
+                                (SMALL_ROWS, SMALL_VALID), SMALL_TABLE):
+        batch = {k: v.to(dtype) if k.startswith("x") else v
+                 for k, v in batch.items()}
+        if perm is not None:  # class c now sits where perm holds c
+            batch["label"] = torch.argsort(perm)[batch["label"]]
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["train_loss"]))
+        grads.append({k: cpu(p.grad) for k, p in named.items()})
+    moments = {k: {n: cpu(v) for n, v in state.optimizer.state[p].items()
+                   if torch.is_tensor(v) and v.shape == p.shape}
+               for k, p in named.items()}
+    return dict(losses=losses, init=init, grads=grads, moments=moments,
+                final={k: cpu(v) for k, v in state.model.state_dict().items()},
+                ema=cpu(state.ema), adam="exp_avg" in next(
+                    iter(moments.values())))
+
+
+def _compare_f64_small_steps(card, host, what: str, at_rate: bool = False):
+    """Two float64 runs of ``_small_steps``: the losses to F64_LOSS_RTOL;
+    parameter updates (under Adam where held) and the optimizer's state to
+    F64_TOL of each tensor's largest entry.  ``at_rate`` (Adam at MIMIC's
+    0.1): the second loss to ADAM_RATE_LOSS_RTOL, and ADAM_HELD_SHARE of
+    the first step's gradient entries (the second step's part widely, from
+    weights the first step moved by up to 0.1 apart).  Returns the log
+    line's tail."""
+    np.testing.assert_allclose(card["losses"][:1], host["losses"][:1],
+                               rtol=F64_LOSS_RTOL)
+    np.testing.assert_allclose(
+        card["losses"], host["losses"],
+        rtol=ADAM_RATE_LOSS_RTOL if at_rate else F64_LOSS_RTOL)
+    worst = {"update": 0.0, "state": 0.0}
+    shares = []
+    for key, want in host["final"].items():
+        if "running" in key or "num_batches" in key:
+            continue
+        got_update = card["final"][key] - card["init"][key]
+        want_update = want - host["init"][key]
+        if host["adam"]:
+            g = torch.stack([s[key] for s in card["grads"]])
+            h = torch.stack([s[key] for s in host["grads"]])
+            agree = (g - h).abs() <= ADAM_GRAD_RTOL * h.abs()
+            held = agree.all(0)
+            shares.append(float((agree[0] if at_rate else held).double()
+                                .mean()))
+            if shares[-1] < ADAM_HELD_SHARE:
+                raise AssertionError(
+                    f"{what} {key}: only {shares[-1]:.3f} of its "
+                    "gradient entries agree to ADAM_GRAD_RTOL")
+            got_update, want_update = got_update[held], want_update[held]
+        pairs = [("update", got_update, want_update)] + [
+            ("state", card["moments"][key][n], ref)
+            for n, ref in host["moments"][key].items()]
+        for kind, got, ref in pairs:
+            err = _scaled_err(got, ref)
+            worst[kind] = max(worst[kind], err)
+            if not err <= F64_TOL:
+                raise AssertionError(
+                    f"{what} {key} {kind}: card and CPU differ by "
+                    f"{err:.3e} of its largest entry")
+    held = (f"; Adam updates held at {min(shares):.3f}-{max(shares):.3f}"
+            " of each tensor's entries" + (" (first step)" if at_rate else "")
+            if shares else "")
+    return (f"updates within {worst['update']:.2e}, optimizer state within "
+            f"{worst['state']:.2e}{held}")
+
+
+def _loss_gap(a, b) -> float:
+    """The second step's losses' relative distance."""
+    return abs(a["losses"][1] - b["losses"][1]) / abs(b["losses"][1])
+
+
+def _torch_settings():
+    """(matmul TF32, cuDNN TF32, CPU threads)."""
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32, torch.get_num_threads())
+
+
+# what a process starts with, and so what the CLI runs under
+TORCH_DEFAULTS = _torch_settings()
+
+
+@contextlib.contextmanager
+def _torch_set(matmul_tf32: bool, cudnn_tf32: bool, threads: int):
+    """The settings of ``_torch_settings`` for the block, restored after."""
+    before = _torch_settings()
+
+    def put(settings):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = settings[:2]
+        torch.set_num_threads(settings[2])
+
+    put((matmul_tf32, cudnn_tf32, threads))
+    try:
+        yield
+    finally:
+        put(before)
+
+
+def phase_small_card_against_cpu(device):
+    """Phase 17a: AV-MNIST jlogits (plain SGD), MIMIC jprobas (Adam, at
+    SMALL_CPU_LR and at the config's 0.1) and jlogits (SGD with momentum)
+    and MUsTARD jlogits (Adam, three towers), two train steps on the card
+    and on the CPU from the same weights and inputs.  fp32 (TF32 off):
+    losses, BN buffers and EMA.  float64: ``_compare_f64_small_steps``,
+    the second loss to ADAM_RATE_LOSS_RTOL at MIMIC's 0.1, beside its
+    witness (the CPU against itself with the classes permuted).  The CPU
+    side runs on 2 threads: PyTorch's CPU convolution backward crashed at
+    some small channels_last shapes on 4."""
+    cpu = torch.device("cpu")
+    with _torch_set(False, False, 2):
+        for bench, model_type, cap in SMALL_CASES:
+            lr = _small_lr(bench, cap)
+            what = f"{bench} {model_type} at lr {lr:g}"
+            card, host = (
+                _small_steps(device, torch.float32, bench, model_type, lr),
+                _small_steps(cpu, torch.float32, bench, model_type, lr))
+            _compare_fp32_steps(card, host, what)
+            card, host = (
+                _small_steps(device, torch.float64, bench, model_type, lr),
+                _small_steps(cpu, torch.float64, bench, model_type, lr))
+            tail = _compare_f64_small_steps(card, host, what,
+                                            at_rate=cap is None)
+            if cap is None:
+                gaps = [_loss_gap(_small_steps(cpu, torch.float64, bench,
+                                               model_type, lr, perm), host)
+                        for perm in SMALL_PERMS]
+                tail += (f"; second loss card against CPU "
+                         f"{_loss_gap(card, host):.2e} apart (limit "
+                         f"{ADAM_RATE_LOSS_RTOL:g}), the CPU against itself "
+                         f"with the classes permuted "
+                         f"{', '.join(f'{g:.2e}' for g in gaps)}")
+            log(f"[small] card against CPU, {what}: float64 losses card "
+                f"{card['losses']} cpu {host['losses']}, {tail}")
+
+
+def _profiled_step(train_step, state, batch):
+    """One train step under ``torch.profiler``: (its wall ms, the device's
+    busy ms in it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_clinical_tpu_torch.benchmarks.profile_vggsound import (
+        kernel_times,
+    )
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, _ = train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = sum(kernel_times(prof).values()) / 1e3
+    if not 0 < busy <= wall:
+        raise AssertionError(f"device busy {busy:.3f} ms in {wall:.3f} ms: "
+                             "the trace's kernel times are wrong")
+    return wall, busy
+
+
+def _drive_small_type(device, card: str, bench: str, model_type: str):
+    """One warm-up step (a padded tail: the QMF History must change at the
+    real idx only), SMALL_TIMED timed steps and one eval step of
+    ``bench``'s ``model_type`` at the published geometry and the config's
+    compute dtype; then one profiled step.  Returns the step median."""
+    from multimodal_clinical_tpu_torch.engine.steps import (
+        make_eval_step, make_train_step,
+    )
+
+    table = MIMIC_TRAIN if bench == "mimic" else SMALL_BATCH * 4
+    torch.cuda.reset_peak_memory_stats()
+    spec, state, args = _small_state(bench, model_type, device, table)
+    batches = _small_batches(bench, device, SMALL_BATCH,
+                             (SMALL_BATCH_VALID, SMALL_BATCH), table)
+    train_step, eval_step = make_train_step(spec), make_eval_step(spec)
+    tables = None
+    if state.qmf_correctness is not None:
+        tables = (state.qmf_correctness.clone(), state.qmf_confidence.clone())
+    losses, step_ms = [], []
+    for i in range(1 + SMALL_TIMED):
+        t = time.perf_counter()
+        state, metrics = train_step(state, batches[min(i, 1)])
+        torch.cuda.synchronize()
+        if i:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["train_loss"]))
+        if i == 0 and tables is not None:
+            real = torch.unique(batches[0]["idx"][batches[0]["valid"] > 0])
+            changed = ((state.qmf_correctness != tables[0])
+                       | (state.qmf_confidence != tables[1])).any(dim=0)
+            if not torch.equal(torch.nonzero(changed)[:, 0], real):
+                raise AssertionError(f"{bench} {model_type}: the History "
+                                     "changed away from the real idx")
+    out = eval_step(state, batches[1])
+    wall, busy = _profiled_step(train_step, state, batches[1])
+    classes = SMALL_BENCHES[bench][0]
+    n = spec.num_modality
+    if not all(math.isfinite(x) for x in losses) or out[
+            "logits_stack"].shape != (SMALL_BATCH, n, classes) or not bool(
+            torch.isfinite(out["logits_stack"]).all()):
+        raise AssertionError(f"{bench} {model_type}: losses {losses}, eval "
+                             f"{tuple(out['logits_stack'].shape)}")
+    median = statistics.median(step_ms)
+    # the profiler slows the host, not the kernels: the device's busy time
+    # is read from the profiled step, its share of the unprofiled median
+    idle = 1 - busy / median
+    if not 0 <= idle < 1:
+        raise AssertionError(f"{bench} {model_type}: device busy {busy:.3f} "
+                             f"ms in a {median:.3f} ms median step")
+    log(f"[{bench} {model_type}] {card}: {getattr(args, 'compute_dtype')} "
+        f"{type(state.optimizer).__name__}, train step median {median:.3f} "
+        f"ms over {SMALL_TIMED} ({min(step_ms):.3f}-{max(step_ms):.3f}); "
+        f"{SMALL_BATCH / median * 1e3:.1f} samples/s at batch "
+        f"{SMALL_BATCH}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; one profiled "
+        f"step {wall:.3f} ms, device busy {busy:.3f} ms in it, idle share "
+        f"{idle:.3f} of the median step; warm-up loss {losses[0]:.5f}, eval "
+        f"loss {float(out['loss']):.5f}"
+        + (" (History written at the real idx only)" if tables else ""))
+    return median
+
+
+def _small_cli_runs(device, bench: str, work: Path):
+    """Phase 17c for one benchmark: the CLI on the twin for two epochs (as
+    ``python3 -m multimodal_clinical_tpu_torch --dir <bench>`` for
+    SMALL_CLI_PROCESS, else its ``run_training`` in process), ``--resume``
+    for a third in process (the restored optimizer state, EMA and QMF
+    tables equal the saved ones), then every other model type for one
+    epoch in process."""
+    import importlib
+
+    from multimodal_clinical_tpu_torch import __main__ as cli
+    from multimodal_clinical_tpu_torch.engine import run
+
+    module = importlib.import_module(
+        f"multimodal_clinical_tpu_torch.benchmarks.{bench}")
+    model_type = SMALL_CLI[bench]
+    root = work / bench
+    base = ["--set", f"ckpt_dir={root}", "--set", f"data_path={root}/none"]
+    argv = base + ["--set", f"model_type={model_type}", "--set",
+                   "num_epochs=2"]
+    if bench == SMALL_CLI_PROCESS:
+        out = _cli(argv, bench=bench)
+        summary = ast.literal_eval(out.strip().splitlines()[-1])
+    else:
+        summary = cli.run_training(["--dir", bench, *argv], device=device)
+    if not math.isfinite(summary.get("test_epoch/test_avg_acc", math.nan)):
+        raise AssertionError(f"{bench}: summary {summary}")
+    (ckpt,) = root.glob("*/ckpt")
+    last = max(ckpt.glob("last-*"), key=lambda p: int(p.name.split("-")[1]))
+    saved = torch.load(last / "state.pt", map_location="cpu",
+                       weights_only=True)
+    restored = {}
+
+    class Watched(run.Trainer):
+        def resume(self):
+            found = super().resume()
+            st = self.state
+            restored.update(
+                step=st.step, ema=st.ema.cpu().clone(),
+                optimizer={i: {n: v.cpu().clone() for n, v in s.items()
+                               if torch.is_tensor(v)}
+                           for i, s in st.optimizer.state_dict()[
+                               "state"].items()},
+                tables=[None if t is None else t.cpu().clone()
+                        for t in (st.qmf_correctness, st.qmf_confidence)])
+            return found
+
+    trainer_cls, run.Trainer = run.Trainer, Watched
+    try:
+        t = time.perf_counter()
+        cli.run_training(["--dir", bench, *base, "--set",
+                          f"model_type={model_type}", "--set",
+                          "num_epochs=3", "--resume"], device=device)
+        wall = time.perf_counter() - t
+    finally:
+        run.Trainer = trainer_cls
+    same = (restored.get("step") == saved["step"]
+            and torch.equal(restored["ema"], saved["ema"].cpu()))
+    for i, kept in saved["optimizer"]["state"].items():
+        for n, v in kept.items():
+            if torch.is_tensor(v):
+                same = same and torch.equal(restored["optimizer"][i][n],
+                                            v.cpu())
+    for got, want in zip(restored["tables"], (saved["qmf_correctness"],
+                                              saved["qmf_confidence"])):
+        same = same and ((got is None and want is None)
+                         or torch.equal(got, want.cpu()))
+    meta = json.loads((ckpt / "meta.json").read_text())
+    if not same or meta["epochs_done"] != 3:
+        raise AssertionError(f"{bench} --resume did not restore the saved "
+                             f"state (meta {meta})")
+    kinds = sorted({n for s in saved["optimizer"]["state"].values()
+                    for n, v in s.items() if torch.is_tensor(v)
+                    and v.dim() > 0})
+    log(f"[cli] {bench} {model_type} --resume in process ({wall:.1f} s): "
+        f"restored step {saved['step']}, the EMA, the optimizer's {kinds}"
+        + (" and the History" if saved["qmf_correctness"] is not None
+           else "") + "; three epochs done")
+    for other in module.MODEL_TYPES:
+        if other == model_type:
+            continue
+        t = time.perf_counter()
+        summary = cli.run_training(
+            ["--dir", bench, "--set", f"ckpt_dir={root / other}", "--set",
+             f"data_path={root}/none", "--set", f"model_type={other}",
+             "--set", "num_epochs=1"], device=device)
+        if not math.isfinite(summary.get("test_epoch/test_avg_acc",
+                                         math.nan)):
+            raise AssertionError(f"{bench} {other}: summary {summary}")
+        names = sorted(p.name for p in (root / other).glob("*/ckpt/*"))
+        log(f"[cli] {bench} {other} one epoch in process "
+            f"({time.perf_counter() - t:.1f} s): test_avg_acc "
+            f"{summary['test_epoch/test_avg_acc']:.4f}, checkpoints {names}")
+
+
+def _small_files_run(device, bench: str, work: Path):
+    """Phase 17d for one benchmark: the fixture's files in the reference's
+    layout, read by ``get_data`` for one CLI epoch in process."""
+    from multimodal_clinical_tpu_torch import __main__ as cli
+    from multimodal_clinical_tpu_torch.benchmarks import array_fixture as fx
+
+    root = work / f"{bench}_files"
+    t = time.perf_counter()
+    if bench == "avmnist":
+        made = fx.build_avmnist_tree(str(root), *SMALL_FILES[bench])
+        path = root
+    elif bench == "mimic":
+        path = root / "im.pk"
+        made = fx.build_mimic_pickle(str(path), SMALL_FILES[bench])
+    else:
+        path = root / "sarcasm.pkl"
+        made = fx.build_mustard_pickle(str(path), *SMALL_FILES[bench])
+    written = time.perf_counter() - t
+    t = time.perf_counter()
+    summary = cli.run_training(
+        ["--dir", bench, "--set", f"ckpt_dir={root}/runs", "--set",
+         f"data_path={path}", "--set", "num_epochs=1"], device=device)
+    if not math.isfinite(summary.get("test_epoch/test_avg_acc", math.nan)):
+        raise AssertionError(f"{bench} files: summary {summary}")
+    rows = [json.loads(line) for p in root.glob("runs/*/metrics.jsonl")
+            for line in p.read_text().splitlines()]
+    epoch = next(r for r in rows if r.get("epoch") == 0)
+    log(f"[files] {bench}: {made['rows']} rows, {made['bytes'] / 1e6:.1f} "
+        f"MB written in {written:.1f} s; one CLI epoch through get_data in "
+        f"{time.perf_counter() - t:.1f} s "
+        f"({epoch['train_epoch/samples_per_sec']:.1f} train samples/s over "
+        f"the epoch), test_avg_acc "
+        f"{summary['test_epoch/test_avg_acc']:.4f}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_small_benchmarks(device, card: str, kernels):
+    """Phase 17: AV-MNIST, MIMIC and MUsTARD.  (a) card against CPU; then
+    per benchmark, its launch counts set to 0 first and read last: (b)
+    every model type at the published geometry, (c) the CLI on the twin
+    with ``--resume`` and every other model type for one epoch, (d) the
+    fixture's files through ``get_data`` for one CLI epoch.  No TPU
+    kernel lies on these paths: each must record 0 launches."""
+    import importlib
+
+    t0 = time.perf_counter()
+    phase_small_card_against_cpu(device)
+    log(f"[small] 17a took {time.perf_counter() - t0:.1f} s")
+    work = WORK_DIR / "small"
+    shutil.rmtree(work, ignore_errors=True)
+    launchers = {**_all_launchers(), **_probe_launchers()}
+    # 17b-d at the settings the CLI starts with, not the TF32-off ones of
+    # the comparisons
+    log(f"[small] 17b-d at (matmul TF32, cuDNN TF32, CPU threads) "
+        f"{TORCH_DEFAULTS}")
+    try:
+        with _torch_set(*TORCH_DEFAULTS):
+            for bench in SMALL_BENCHES:
+                module = importlib.import_module(
+                    f"multimodal_clinical_tpu_torch.benchmarks.{bench}")
+                for fn in launchers.values():
+                    fn.launches = 0
+                t = time.perf_counter()
+                for model_type in module.MODEL_TYPES:
+                    _drive_small_type(device, card, bench, model_type)
+                    torch.cuda.empty_cache()
+                _small_cli_runs(device, bench, work)
+                _small_files_run(device, bench, work)
+                launches = {name: fn.launches
+                            for name, fn in launchers.items()}
+                if any(launches.values()):
+                    raise AssertionError(f"{bench}: TPU kernels launched on "
+                                         f"its path: {launches}")
+                for entry in kernels:
+                    entry.setdefault("launches_by_path", {})[bench] = (
+                        launches[entry["name"]])
+                log(f"[small] {bench}: 17b-d took "
+                    f"{time.perf_counter() - t:.1f} s; launches of every TPU "
+                    f"kernel on its path: {launches}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[small] phase 17 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -2455,6 +3007,7 @@ def main() -> int:
         phase_disk_contracts(device, card, trees, kernels)
     finally:
         shutil.rmtree(DISK_DIR, ignore_errors=True)
+    phase_small_benchmarks(device, card, kernels)
     missing = [e["name"] for e in kernels if not e["launches"]]
     if missing:
         raise AssertionError(f"kernels not launched on their path: {missing}")

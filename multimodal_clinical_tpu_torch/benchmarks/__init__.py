@@ -4,20 +4,18 @@
 Each benchmark module exposes
     get_data(args) -> engine.run.DataBundle
     get_model_spec(args, n_train) -> (engine.spec.ModelSpec, opt_kwargs)
-The port has VGGSound, Crema-D and AVE; each other name raises, naming
-the ROADMAP.md queue A item that ports it.
+The port has VGGSound, Crema-D, AVE, AV-MNIST, MIMIC and MUsTARD; each
+other name raises, naming the ROADMAP.md queue A item that ports it.
 """
 
 from __future__ import annotations
 
 import importlib
 
-_REGISTRY = {"vggsound": ".vggsound", "cremad": ".cremad", "ave": ".ave"}
+_REGISTRY = {"vggsound": ".vggsound", "cremad": ".cremad", "ave": ".ave",
+             "avmnist": ".avmnist", "mimic": ".mimic", "mustard": ".mustard"}
 
 _NOT_PORTED = {
-    "avmnist": 12,
-    "mimic": 13,
-    "mustard": 13,
     "enrico": 14,
     "food101": 15,
     "fakenews": 16,

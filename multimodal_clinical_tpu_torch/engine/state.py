@@ -43,13 +43,21 @@ def make_lr_schedule(base_lr: float, use_scheduler: bool, steps_per_epoch: int,
 def make_optimizer(params: Iterable[nn.Parameter], lr: float,
                    momentum: float = 0.9, weight_decay: float = 1.0e-4,
                    optimizer: str = "sgd") -> torch.optim.Optimizer:
-    """torch.optim.SGD(momentum, weight_decay): weight decay is added to
-    the gradient before the momentum buffer, whose first value is that
-    gradient — the JAX package's add_decayed_weights -> trace chain."""
+    """The reference's per-variant optimizer.
+
+    ``"sgd"``: torch.optim.SGD(momentum, weight_decay): weight decay is
+    added to the gradient before the momentum buffer, whose first value is
+    that gradient — the JAX package's add_decayed_weights -> trace chain.
+
+    ``"adam"``: torch.optim.Adam's defaults, betas (0.9, 0.999), eps 1e-8
+    outside the square root, weight decay 0 — what the four reference
+    model files that train with Adam pass (only ``lr``); ``momentum`` and
+    ``weight_decay`` are ignored, as in the JAX package's optax chain."""
+    if optimizer == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=0.0)
     if optimizer != "sgd":
-        raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet (slice 1 trains "
-            "VGGSound with SGD; ROADMAP.md queue A, slices 4-5)")
+        raise ValueError(f"unknown optimizer {optimizer!r}")
     return torch.optim.SGD(params, lr=lr, momentum=momentum,
                            weight_decay=weight_decay)
 
@@ -98,10 +106,17 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 def create_train_state(spec: ModelSpec, args: Any, seed: int,
                        steps_per_epoch: int, device="cuda",
                        momentum: float = 0.9,
-                       weight_decay: float = 1.0e-4) -> TrainState:
+                       weight_decay: float = 1.0e-4,
+                       optimizer: str = "sgd",
+                       lr_override: Optional[float] = None) -> TrainState:
     """Draw ``spec.module``'s weights from ``seed``, move it to ``device``
     (channels_last), and build the optimizer, EMA and (under the qmf
-    contract) History tables there."""
+    contract) History tables there.  ``optimizer``, ``momentum`` and
+    ``weight_decay`` are the benchmark's ``opt_kwargs``."""
+    if lr_override is not None:
+        raise NotImplementedError(
+            "lr_override is not ported yet: it comes with FakeNews "
+            "(ROADMAP.md queue A, item 16)")
     device = resolve_device(device)
     model = init_weights(spec.module, torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last)
@@ -109,14 +124,15 @@ def create_train_state(spec: ModelSpec, args: Any, seed: int,
         float(args.learning_rate), bool(getattr(args, "use_scheduler", False)),
         steps_per_epoch, spec.sched_step_size, spec.sched_gamma,
         int(getattr(args, "num_epochs", 1)))
-    optimizer = make_optimizer(model.parameters(), schedule(0), momentum,
-                               weight_decay)
+    opt = make_optimizer(model.parameters(), schedule(0), momentum,
+                         weight_decay, optimizer)
     ema = torch.zeros(spec.num_modality, int(args.num_classes),
                       dtype=torch.float32, device=device)
     qmf_corr = qmf_conf = None
     if spec.contract == "qmf":
         qmf_corr, qmf_conf = init_history(spec.num_modality,
                                           spec.n_train_samples, device)
-    return TrainState(step=0, model=model, optimizer=optimizer, ema=ema,
+    return TrainState(step=0, model=model, optimizer=opt, ema=ema,
                       seed=seed, lr_schedule=schedule,
+                      lr_metric_name=f"lr-{type(opt).__name__}",
                       qmf_correctness=qmf_corr, qmf_confidence=qmf_conf)

@@ -1,5 +1,5 @@
 """Shared building blocks: torch-matched initialisers, ``TorchDense``,
-``FusedBatchNorm`` and pooling (port of
+``TorchBatchNorm``, ``FusedBatchNorm`` and pooling (port of
 ``multimodal_clinical_tpu/models/common.py``).
 
 Every module here keeps fp32 parameters and computes in a configurable
@@ -26,6 +26,13 @@ def kaiming_normal_fan_out_(w: torch.Tensor, generator=None) -> torch.Tensor:
     scratch ResNet convs (cremad/backbone.py:137-139)."""
     return nn.init.kaiming_normal_(w, mode="fan_out", nonlinearity="relu",
                                    generator=generator)
+
+
+def kaiming_uniform_(w: torch.Tensor, generator=None) -> torch.Tensor:
+    """torch kaiming_uniform_(a=0), U(-sqrt(6 / fan_in), sqrt(6 / fan_in)):
+    the LeNet convs (avmnist/joint_model.py:69-71)."""
+    return nn.init.kaiming_uniform_(w, a=0.0, nonlinearity="relu",
+                                    generator=generator)
 
 
 def torch_default_uniform_(w: torch.Tensor, fan_in: int,
@@ -62,12 +69,16 @@ class BatchNormBase(nn.Module):
     """Parameters and running statistics of the towers' batch norms: fp32
     ``weight`` (flax ``scale``) and ``bias``, ``running_mean`` and
     ``running_var`` buffers, momentum 0.1 (flax 0.9), eps 1e-5; scale ~
-    N(1, 0.02), bias 0 (cremad/backbone.py:136-142).  ``dtype`` is the
-    compute dtype; subclasses define ``forward``."""
+    N(1, ``scale_std``), bias 0: N(1, 0.02) in the scratch ResNet
+    (cremad/backbone.py:136-142), ones where ``scale_std`` is 0 (the flax
+    default, LeNet's).  ``dtype`` is the compute dtype; subclasses define
+    ``forward``."""
 
-    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None,
+                 scale_std: float = 0.02):
         super().__init__()
         self.dtype = dtype
+        self.scale_std = scale_std
         self.momentum = 0.1
         self.eps = 1e-5
         self.weight = nn.Parameter(torch.empty(features))
@@ -77,10 +88,46 @@ class BatchNormBase(nn.Module):
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
-        nn.init.normal_(self.weight, 1.0, 0.02, generator=generator)
+        if self.scale_std:
+            nn.init.normal_(self.weight, 1.0, self.scale_std,
+                            generator=generator)
+        else:
+            nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
+
+
+class TorchBatchNorm(BatchNormBase):
+    """BatchNorm with the JAX package's default (flax ``nn.BatchNorm``)
+    semantics, which differ from ``torch.nn.BatchNorm2d``: statistics in
+    fp32, and the BIASED batch variance goes into ``running_var``.
+    ``F.batch_norm`` computes the batch statistics into scratch buffers
+    (momentum 1 leaves the batch mean and the unbiased variance there) and
+    the running buffers are updated here by hand.  The output is in
+    ``dtype`` or, when None, in the promotion of the input with fp32, as
+    flax's is.  Takes (N, C, ...)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = self.dtype or torch.promote_types(x.dtype,
+                                                      self.weight.dtype)
+        if not self.training:
+            y = F.batch_norm(x, self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(out_dtype)
+        c = x.shape[1]
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        with torch.no_grad():
+            m = x.numel() // c
+            biased = var * ((m - 1) / m)
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                biased, alpha=self.momentum)
+        return y.to(out_dtype)
 
 
 class FusedBatchNorm(BatchNormBase):
@@ -126,3 +173,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> (B, C) mean over all spatial dims (NHWC)."""
     return x.mean(dim=tuple(range(1, x.dim() - 1)))
+
+
+def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """``window`` x ``window`` max-pool, stride ``window``, with VALID
+    padding (the output size floors) on an (N, C, H, W) map, as the towers
+    hold it (the JAX ``max_pool`` takes NHWC)."""
+    return F.max_pool2d(x, window)

@@ -27,45 +27,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.maxpool import max_pool_3x3_s2_stored_index
-from .common import BatchNormBase, FusedBatchNorm, kaiming_normal_fan_out_
+from .common import FusedBatchNorm, TorchBatchNorm, kaiming_normal_fan_out_
 
 POOL_KERNELS = ("xla", "pallas")
 
 
-class _BN(BatchNormBase):
-    """BatchNorm with the JAX package's default (flax ``nn.BatchNorm``)
-    semantics, which differ from ``torch.nn.BatchNorm2d``: statistics in
-    fp32, and the BIASED batch variance goes into ``running_var``.
-    ``F.batch_norm`` computes the batch statistics into scratch buffers
-    (momentum 1 leaves the batch mean and the unbiased variance there) and
-    the running buffers are updated here by hand.  The output is in
-    ``dtype`` or, when None, in the promotion of the input with fp32, as
-    flax's is."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out_dtype = self.dtype or torch.promote_types(x.dtype,
-                                                      self.weight.dtype)
-        if not self.training:
-            y = F.batch_norm(x, self.running_mean, self.running_var,
-                             self.weight, self.bias, False, 0.0, self.eps)
-            return y.to(out_dtype)
-        c = x.shape[1]
-        mean = torch.zeros_like(self.running_mean)
-        var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
-                         self.eps)
-        with torch.no_grad():
-            m = x.numel() // c
-            biased = var * ((m - 1) / m)
-            self.running_mean.mul_(1.0 - self.momentum).add_(
-                mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(
-                biased, alpha=self.momentum)
-        return y.to(out_dtype)
-
-
 def _bn(features: int, dtype: Optional[torch.dtype], fused: bool) -> nn.Module:
-    return (FusedBatchNorm if fused else _BN)(features, dtype)
+    return (FusedBatchNorm if fused else TorchBatchNorm)(features, dtype)
 
 
 class Conv(nn.Module):

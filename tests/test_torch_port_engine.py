@@ -20,6 +20,7 @@ from multimodal_clinical_tpu.engine import state as jax_state
 from multimodal_clinical_tpu_torch.algos import ema
 from multimodal_clinical_tpu_torch.engine import contracts, state
 from multimodal_clinical_tpu_torch.engine.spec import ModelSpec, resolve_dtype
+from multimodal_clinical_tpu_torch.models.common import TorchDense
 
 torch.set_num_threads(2)
 
@@ -117,10 +118,81 @@ def test_sgd_matches_the_jax_optimizer_chain():
                                    rtol=1e-6, atol=1e-7)
 
 
+ADAM_UPDATE_TOL = 2e-5
+
+
 def test_make_optimizer_names_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Adam against the JAX package's optax chain (scale_by_adam, eps
+    outside the square root, then the learning rate) over ten steps under
+    a StepLR schedule that halves it every two epochs of two steps; the
+    port sets each step's rate as its train step does.  ``momentum`` and
+    ``weight_decay`` are ignored under Adam on both sides.
+
+    The moments are the same fp32 recurrences.  The bias corrections are
+    not: optax computes ``1 - 0.999 ** t`` in fp32 (1.3e-5 off at t = 1),
+    torch in float64, so each update parts by up to ~7e-6 of its size;
+    the cumulative update is held to ADAM_UPDATE_TOL of its largest
+    entry."""
+    rng = np.random.default_rng(5)
+    p0 = rng.normal(size=(6,)).astype(np.float32)
+    grads = [rng.normal(scale=0.3, size=(6,)).astype(np.float32)
+             for _ in range(10)]
+    sched = (0.05, True, 2, 2, 0.5, 10)
+    schedule = state.make_lr_schedule(*sched)
+    param = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    opt = state.make_optimizer([param], schedule(0), momentum=0.9,
+                               weight_decay=1e-4, optimizer="adam")
+    assert isinstance(opt, torch.optim.Adam)
+    assert opt.defaults["betas"] == (0.9, 0.999)
+    assert (opt.defaults["eps"], opt.defaults["weight_decay"]) == (1e-8, 0)
+    tx = jax_state.make_optimizer(jax_state.make_lr_schedule(*sched),
+                                  momentum=0.9, weight_decay=1e-4,
+                                  optimizer="adam")
+    jp = jnp.asarray(p0)
+    opt_state = tx.init(jp)
+    for step, g in enumerate(grads):
+        for group in opt.param_groups:
+            group["lr"] = schedule(step)
+        param.grad = torch.from_numpy(g.copy())
+        opt.step()
+        updates, opt_state = tx.update(jnp.asarray(g), opt_state, jp)
+        jp = optax.apply_updates(jp, updates)
+        got, want = param.detach().numpy() - p0, np.asarray(jp) - p0
+        assert np.abs(got - want).max() <= ADAM_UPDATE_TOL * np.abs(
+            want).max(), (step, got, want)
+    adam = opt.state[param]
+    np.testing.assert_allclose(adam["exp_avg"].numpy(),
+                               np.asarray(opt_state[0].mu), rtol=1e-6,
+                               atol=1e-8)
+    np.testing.assert_allclose(adam["exp_avg_sq"].numpy(),
+                               np.asarray(opt_state[0].nu), rtol=1e-6,
+                               atol=1e-10)
+
+
+def test_make_optimizer_raises_for_an_unknown_name():
+    with pytest.raises(ValueError, match="unknown optimizer"):
         state.make_optimizer([torch.nn.Parameter(torch.zeros(1))], 0.1,
-                             optimizer="adam")
+                             optimizer="adamw")
+
+
+def test_create_train_state_names_what_is_not_ported():
+    """``lr_override`` comes with FakeNews (ROADMAP.md queue A, item 16)."""
+    spec = ModelSpec(module=torch.nn.Linear(2, 2))
+    args = SimpleNamespace(learning_rate=0.1, num_classes=2)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        state.create_train_state(spec, args, 0, 1, device="cpu",
+                                 lr_override=1e-4)
+
+
+def test_create_train_state_builds_adam_and_its_lr_stream():
+    spec = ModelSpec(module=TorchDense(2, 2))
+    args = SimpleNamespace(learning_rate=0.1, num_classes=2)
+    st = state.create_train_state(spec, args, 0, 1, device="cpu",
+                                  optimizer="adam")
+    assert isinstance(st.optimizer, torch.optim.Adam)
+    assert st.lr_metric_name == "lr-Adam"
+    st = state.create_train_state(spec, args, 0, 1, device="cpu")
+    assert st.lr_metric_name == "lr-SGD"
 
 
 def test_resolve_dtype_maps_the_config_key():
