@@ -118,13 +118,36 @@ Phases, each of which raises on failure:
    ``benchmarks/array_fixture.py`` (AV-MNIST's six ``.npy`` at 55 320 + 320
    rows, MIMIC's ``im.pk``, MUsTARD's ``sarcasm.pkl``) through ``get_data``
    for one CLI epoch.  No TPU kernel lies on these paths: each must record 0
-   launches.
+   launches;
+18. Enrico and FakeNews: (a) narrow nets on the card against the CPU, two
+   train steps from the same weights, the second batch with a padded tail:
+   Enrico jlogits (frozen ResNet18Slim features at width 16) and
+   jlogits_counts (frozen VGG11Slim stacks, their 16 dropouts' masks
+   drawn on the CPU for both devices), FakeNews jlogits_dialogue (two
+   256-wide text towers over rows with padded tails and one of padding
+   only, a width-16 image tower) and jlogits_embed (one Bottleneck block a
+   stage, its fusion dropout injected): losses, BN buffers and EMA in fp32,
+   updates and optimizer state in float64, the frozen leaves bit-unchanged
+   with no optimizer state; then at a fresh process's settings, the launch
+   counts set to 0 first and read last: (b) all five Enrico and six
+   FakeNews model types at the published geometry (Enrico batch 64 of
+   256 x 128 uint8 screenshots and wireframes, 20 topics; FakeNews batch
+   32 of 128 tokens over a 30 522 vocabulary and 224 x 224 images, the
+   embed variants 768-d embeddings and ResNet152), a warm-up step, timed
+   steps, an eval step and one profiled step, the frozen leaves
+   bit-identical after; ``load_pretrained`` from seeded torchvision-layout
+   resnet18 and resnet152 files against the same weights loaded directly;
+   (c) both CLIs on their twins for two epochs and ``--resume`` for a
+   third, then on disk corpora (Enrico 128 screens of 1440 x 2560;
+   FakeNews 96 + 32 + 32 posts with 640 x 480 images, the token variant
+   and the embed dialogue variant) for one epoch.  No TPU kernel lies on
+   these paths: each must record 0 launches.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; launches made to compare or time a kernel do not count.  The
 kernels' line gives each kernel's launches on the main path as
 ``launches`` and on the later paths under ``launches_by_path`` (0 on
-AV-MNIST's, MIMIC's and MUsTARD's); the
+AV-MNIST's, MIMIC's, MUsTARD's, Enrico's and FakeNews's); the
 max-pool's entries list the shapes checked on the phase 14 path under
 ``checked_shapes_by_path``.
 
@@ -2598,14 +2621,24 @@ def _small_steps(dev, dtype, bench: str, model_type: str, lr: float,
                     iter(moments.values())))
 
 
-def _compare_f64_small_steps(card, host, what: str, at_rate: bool = False):
+# attention's key bias: the softmax over the keys is shift invariant, so
+# its gradient is zero in exact arithmetic and rounding on each device,
+# below ROUNDING_GRAD; Adam moves each such entry by up to about the
+# learning rate a step, in the direction the rounding gives it
+ROUNDING_GRAD = 1e-6
+
+
+def _compare_f64_small_steps(card, host, what: str, at_rate: bool = False,
+                             rounding=()):
     """Two float64 runs of ``_small_steps``: the losses to F64_LOSS_RTOL;
     parameter updates (under Adam where held) and the optimizer's state to
     F64_TOL of each tensor's largest entry.  ``at_rate`` (Adam at MIMIC's
     0.1): the second loss to ADAM_RATE_LOSS_RTOL, and ADAM_HELD_SHARE of
     the first step's gradient entries (the second step's part widely, from
-    weights the first step moved by up to 0.1 apart).  Returns the log
-    line's tail."""
+    weights the first step moved by up to 0.1 apart).  Keys ending in one
+    of ``rounding``: both devices' gradients below ROUNDING_GRAD and their
+    updates within twice the learning rate a step.  Returns the log line's
+    tail."""
     np.testing.assert_allclose(card["losses"][:1], host["losses"][:1],
                                rtol=F64_LOSS_RTOL)
     np.testing.assert_allclose(
@@ -2618,6 +2651,15 @@ def _compare_f64_small_steps(card, host, what: str, at_rate: bool = False):
             continue
         got_update = card["final"][key] - card["init"][key]
         want_update = want - host["init"][key]
+        if key.endswith(tuple(rounding)):
+            bound = 2 * host["lr"] * len(host["grads"])
+            grads = [s[key] for run in (card, host) for s in run["grads"]]
+            if (max(float(g.abs().max()) for g in grads) > ROUNDING_GRAD
+                    or float(got_update.abs().max()) > bound
+                    or float(want_update.abs().max()) > bound):
+                raise AssertionError(f"{what} {key}: a gradient beyond "
+                                     "rounding, or an update beyond 2 lr")
+            continue
         if host["adam"]:
             g = torch.stack([s[key] for s in card["grads"]])
             h = torch.stack([s[key] for s in host["grads"]])
@@ -2979,6 +3021,469 @@ def phase_small_benchmarks(device, card: str, kernels):
     log(f"[small] phase 17 took {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 18: Enrico and FakeNews --------------------------------------------
+
+# 18a: card against CPU, two steps of WIDE_ROWS rows (the second with
+# WIDE_VALID real ones) from the same weights, narrow nets at small inputs:
+# (benchmark, model type, net built from the spec's arguments, the inputs'
+# kinds); "u8" uint8 pixels, "unit" floats in [0, 1], "ids" token rows
+# padded at their tail (the second row all padding), else normal floats
+WIDE_ROWS, WIDE_VALID = 6, 4
+WIDE_CASES = (
+    ("enrico", "jlogits", [("u8", (64, 32, 3))] * 2),
+    ("enrico", "jlogits_counts", [("u8", (64, 32, 3))] * 2),
+    ("fakenews", "jlogits_dialogue",
+     [("ids", 24), ("unit", (64, 64, 3)), ("ids", 24)]),
+    ("fakenews", "jlogits_embed",
+     [("normal", (768,)), ("normal", (64, 64, 3))]),
+)
+# 18b: the published geometry, nothing cut: Enrico's 256 x 128 uint8
+# screenshots and wireframes at batch 64 over 20 topics (configs/
+# enrico.yaml, enrico/get_data.py:94-103); FakeNews's 128 tokens over the
+# bert-base-uncased vocabulary and 224 x 224 images at batch 32 over the 6
+# ways (configs/fakenews.yaml), the embed variants' 768-d embeddings and
+# torchvision resnet152 at 224 (fakenews/model.py:27,238)
+WIDE_BENCHES = {
+    "enrico": (20, 64, [("u8", (256, 128, 3))] * 2),
+    "fakenews": (6, 32, [("ids", 128), ("unit", (224, 224, 3)),
+                         ("ids", 128)]),
+    "fakenews_embed": (6, 32, [("normal", (768,)), ("normal", (224, 224, 3)),
+                               ("normal", (768,))]),
+}
+WIDE_TIMED = 3
+# 18c: the disk corpora, cut in rows only: Enrico's screens as RICO
+# captures them (1440 x 2560 JPEG screenshots, PNG wireframes; 1460 screens
+# in the real CSV), FakeNews's posts with 640 x 480 JPEGs (~1M real)
+WIDE_DISK_ENRICO = 128
+WIDE_DISK_FAKENEWS = (96, 32, 32)
+WIDE_DIR = WORK_DIR / "wide"
+
+
+def _wide_batches(bench_kinds, classes: int, dev, rows: int, valid,
+                  seed: int = 0, dtype=None):
+    """Train batches of ``rows`` from numpy's ``seed`` generator, one per
+    entry of ``valid`` (its count of real rows; the rest repeat the last
+    real one); float inputs cast to ``dtype`` where given, as the Loader
+    casts them for a bf16 net."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for real in valid:
+        pick = np.arange(rows).clip(max=real - 1)
+        batch = {}
+        for i, (kind, shape) in enumerate(bench_kinds):
+            if kind == "u8":
+                x = rng.integers(0, 256, (rows,) + shape, dtype=np.uint8)
+            elif kind == "ids":
+                x = rng.integers(1, 30522, (rows, shape)).astype(np.int32)
+                length = rng.integers(1, shape + 1, rows)
+                length[1] = 0  # a row of padding only
+                x[np.arange(shape) >= length[:, None]] = 0
+            elif kind == "unit":
+                x = rng.random((rows,) + shape, dtype=np.float32)
+            else:
+                x = rng.standard_normal((rows,) + shape, dtype=np.float32)
+            batch[f"x{i + 1}"] = x[pick]
+        batch["label"] = rng.integers(0, classes, rows)[pick]
+        batch["valid"] = (np.arange(rows) < real).astype(np.float32)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in batch.items()}
+        if dtype is not None:
+            batch = {k: v.to(dtype) if k.startswith("x")
+                     and v.is_floating_point() else v
+                     for k, v in batch.items()}
+        out.append(batch)
+    return out
+
+
+def _wide_spec(bench: str, model_type: str, narrow: bool = False,
+               **overrides):
+    """(benchmark module, spec, optimizer arguments, args) of ``bench``'s
+    ``model_type`` from its config.  ``narrow``: the towers of 18a (ResNets
+    at width 16, one Bottleneck block a stage; the VGG and text towers
+    as they are)."""
+    import dataclasses
+    import importlib
+
+    from multimodal_clinical_tpu_torch.config import load_config
+    from multimodal_clinical_tpu_torch.models import zoo
+
+    module = importlib.import_module(
+        f"multimodal_clinical_tpu_torch.benchmarks.{bench}")
+    if narrow and "embed" in model_type:
+        overrides["embed_stage_sizes"] = (1, 1, 1, 1)
+    args = load_config(bench, overrides=dict(model_type=model_type,
+                                             **overrides))
+    spec, opt = module.get_model_spec(args, n_train=64)
+    if narrow and bench == "enrico" and model_type == "jlogits":
+        spec = dataclasses.replace(spec, module=zoo.EnricoFusionNet(
+            int(args.num_classes), True, None, width=16))
+    elif narrow and bench == "fakenews" and "embed" not in model_type:
+        spec = dataclasses.replace(spec, module=zoo.FakeNewsFusionNet(
+            int(args.num_classes), with_dialogue=True, width=16))
+    return module, spec, opt, args
+
+
+def _injected_dropout(step: int):
+    """A mask source for one train step: the i-th dropout reached draws
+    from numpy's (step, i) generator on the CPU and moves to the device,
+    so card and CPU drop the same entries."""
+    count = [0]
+
+    def source(shape, keep_prob, device):
+        rng = np.random.default_rng((step, count[0]))
+        count[0] += 1
+        return torch.from_numpy(rng.random(shape) < keep_prob).to(device)
+
+    return source
+
+
+def _wide_steps(dev, dtype, bench: str, model_type: str, kinds):
+    """Two train steps of a narrow 18a net in fp32 compute (``dtype`` the
+    parameters' and inputs'), in the keys of ``_small_steps``; frozen
+    parameters have no gradient and no optimizer state."""
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+    from multimodal_clinical_tpu_torch.engine.steps import make_train_step
+
+    _, spec, opt, args = _wide_spec(bench, model_type, narrow=True,
+                                    compute_dtype="float32")
+    state = create_train_state(spec, args, 0, steps_per_epoch=100,
+                               device=dev, **opt)
+    state.model.to(dtype)
+    cpu = lambda t: t.detach().cpu().clone()
+    init = {k: cpu(v) for k, v in state.model.state_dict().items()}
+    step = make_train_step(
+        spec, dropout=lambda st: _injected_dropout(st.step))
+    named = dict(state.model.named_parameters())
+    losses, grads = [], []
+    for batch in _wide_batches(kinds, int(args.num_classes), dev, WIDE_ROWS,
+                               (WIDE_ROWS, WIDE_VALID)):
+        # float64: uint8 pixels as the preprocess's / 255 in float64
+        batch = {k: (v.to(dtype) / 255.0 if v.dtype == torch.uint8
+                     and dtype == torch.float64 else v.to(dtype))
+                 if k.startswith("x") and (v.is_floating_point()
+                                           or v.dtype == torch.uint8)
+                 else v for k, v in batch.items()}
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["train_loss"]))
+        grads.append({k: cpu(p.grad) for k, p in named.items()
+                      if p.grad is not None})
+    moments = {k: {n: cpu(v) for n, v in state.optimizer.state[p].items()
+                   if torch.is_tensor(v) and v.shape == p.shape}
+               for k, p in named.items()}
+    frozen = [k for k in named if k.startswith(spec.frozen_prefixes)]
+    return dict(losses=losses, init=init, grads=grads, moments=moments,
+                final={k: cpu(v) for k, v in state.model.state_dict().items()},
+                ema=cpu(state.ema), frozen=frozen,
+                lr=state.optimizer.param_groups[0]["lr"],
+                adam=isinstance(state.optimizer, torch.optim.Adam))
+
+
+def phase_wide_card_against_cpu(device):
+    """Phase 18a: Enrico jlogits (frozen ResNet18Slim features) and
+    jlogits_counts (frozen VGG11Slim stacks, 16 dropouts injected), FakeNews
+    jlogits_dialogue (two text towers over rows with padded tails and one
+    of padding only) and jlogits_embed (one Bottleneck block a stage, its
+    fusion dropout injected), two train steps on the card and on the CPU
+    from the same weights: fp32 (TF32 off) losses, BN buffers and EMA;
+    float64 updates and optimizer state (``_compare_f64_small_steps``);
+    the frozen leaves bit-unchanged on both devices with no optimizer
+    state."""
+    cpu = torch.device("cpu")
+    with _torch_set(False, False, 2):
+        for bench, model_type, kinds in WIDE_CASES:
+            what = f"{bench} {model_type}"
+            card, host = (
+                _wide_steps(device, torch.float32, bench, model_type, kinds),
+                _wide_steps(cpu, torch.float32, bench, model_type, kinds))
+            _compare_fp32_steps(card, host, what)
+            card, host = (
+                _wide_steps(device, torch.float64, bench, model_type, kinds),
+                _wide_steps(cpu, torch.float64, bench, model_type, kinds))
+            for run in (card, host):
+                for key in run["frozen"]:
+                    if not (torch.equal(run["final"][key], run["init"][key])
+                            and not run["moments"][key]):
+                        raise AssertionError(f"{what}: frozen {key} moved")
+            tail = _compare_f64_small_steps(card, host, what,
+                                            rounding=(".key.bias",))
+            log(f"[wide] card against CPU, {what}: float64 losses card "
+                f"{card['losses']} cpu {host['losses']}, {tail}; "
+                f"{len(card['frozen'])} frozen leaves bit-unchanged")
+
+
+def _drive_wide_type(device, card: str, bench: str, model_type: str):
+    """One warm-up step (a padded tail), WIDE_TIMED timed steps and one
+    eval step of ``model_type`` at the published geometry in the config's
+    dtype, then one profiled step; frozen leaves bit-unchanged after.
+    Returns the step median."""
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+    from multimodal_clinical_tpu_torch.engine.steps import (
+        make_eval_step, make_train_step,
+    )
+
+    key = "fakenews_embed" if "embed" in model_type else bench
+    classes, batch, kinds = WIDE_BENCHES[key]
+    n_in = 3 if model_type.endswith("dialogue") else 2
+    torch.cuda.reset_peak_memory_stats()
+    _, spec, opt, args = _wide_spec(bench, model_type)
+    state = create_train_state(spec, args, 0, steps_per_epoch=100,
+                               device=device, **opt)
+    named = dict(state.model.named_parameters())
+    frozen = {k: p.detach().clone() for k, p in named.items()
+              if k.startswith(spec.frozen_prefixes)}
+    batches = _wide_batches(kinds[:n_in], classes, device, batch,
+                            (batch - 4, batch), dtype=torch.bfloat16)
+    train_step, eval_step = make_train_step(spec), make_eval_step(spec)
+    losses, step_ms = [], []
+    for i in range(1 + WIDE_TIMED):
+        t = time.perf_counter()
+        state, metrics = train_step(state, batches[min(i, 1)])
+        torch.cuda.synchronize()
+        if i:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["train_loss"]))
+    out = eval_step(state, batches[1])
+    wall, busy = _profiled_step(train_step, state, batches[1])
+    moved = [k for k, v in frozen.items() if not torch.equal(named[k], v)
+             or state.optimizer.state[named[k]]]
+    n = spec.num_modality
+    if moved or not all(math.isfinite(x) for x in losses) or out[
+            "logits_stack"].shape != (batch, n, classes) or not bool(
+            torch.isfinite(out["logits_stack"]).all()):
+        raise AssertionError(f"{bench} {model_type}: losses {losses}, eval "
+                             f"{tuple(out['logits_stack'].shape)}, frozen "
+                             f"leaves moved {moved[:3]}")
+    median = statistics.median(step_ms)
+    idle = 1 - busy / median
+    if not 0 <= idle < 1:
+        raise AssertionError(f"{bench} {model_type}: device busy {busy:.3f} "
+                             f"ms in a {median:.3f} ms median step")
+    log(f"[{bench} {model_type}] {card}: {args.compute_dtype} "
+        f"{type(state.optimizer).__name__} at lr "
+        f"{state.optimizer.param_groups[0]['lr']:g}, train step median "
+        f"{median:.3f} ms over {WIDE_TIMED} ({min(step_ms):.3f}-"
+        f"{max(step_ms):.3f}); {batch / median * 1e3:.1f} samples/s at "
+        f"batch {batch}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; one profiled "
+        f"step {wall:.3f} ms, device busy {busy:.3f} ms in it, idle share "
+        f"{idle:.3f} of the median step; warm-up loss {losses[0]:.5f}, eval "
+        f"loss {float(out['loss']):.5f}; {len(frozen)} frozen leaves "
+        "bit-unchanged")
+    return median
+
+
+def _torchvision_layout(encoder, extra_fc: int, seed: int):
+    """``encoder``'s state_dict redrawn from ``seed`` (running variances
+    in [0.5, 2]) with torchvision's extra ``fc`` and
+    ``num_batches_tracked`` entries: what a local torchvision checkpoint
+    holds."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, value in encoder.state_dict().items():
+        value = value.detach().cpu()
+        if "running_var" in key:
+            sd[key] = torch.rand(value.shape, generator=gen) * 1.5 + 0.5
+        else:
+            sd[key] = torch.randn(value.shape, generator=gen) * 0.05
+    sd["fc.weight"] = torch.randn(1000, extra_fc, generator=gen)
+    sd["fc.bias"] = torch.zeros(1000)
+    sd["bn1.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def _check_load_pretrained(device, work: Path):
+    """Seeded torchvision-layout resnet18 and resnet152 state dicts
+    through ``load_pretrained`` (Enrico's ``torchvision_weights``, the
+    embed variant's ``resnet152_weights``): the eval logits equal those of
+    the same nets with the weights loaded straight into the towers."""
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+
+    work.mkdir(parents=True, exist_ok=True)
+    for bench, model_type, key, towers in (
+            ("enrico", "jlogits", "torchvision_weights",
+             ("x1_model.features", "x2_model.features")),
+            ("fakenews", "jlogits_embed", "resnet152_weights",
+             ("image_module",))):
+        module, spec, opt, args = _wide_spec(bench, model_type)
+        state = create_train_state(spec, args, 0, steps_per_epoch=10,
+                                   device=device, **opt)
+        sd = _torchvision_layout(state.model.get_submodule(towers[0]),
+                                 512 if bench == "enrico" else 2048, 11)
+        path = work / f"{key}.pth"
+        torch.save(sd, path)
+        direct = {k: v.clone() for k, v in state.model.state_dict().items()}
+        for tower in towers:
+            for name in state.model.get_submodule(tower).state_dict():
+                direct[f"{tower}.{name}"] = sd[name].to(device)
+        setattr(args, key, str(path))
+        state = module.load_pretrained(args, state)
+        key_ = "fakenews_embed" if "embed" in model_type else bench
+        classes, _, kinds = WIDE_BENCHES[key_]
+        (batch,) = _wide_batches(kinds[:2], classes, device, 4, (4,),
+                                 dtype=torch.bfloat16)
+        from multimodal_clinical_tpu_torch.engine.steps import make_eval_step
+
+        got = make_eval_step(spec)(state, batch)["logits_stack"]
+        state.model.load_state_dict(direct)
+        want = make_eval_step(spec)(state, batch)["logits_stack"]
+        if not torch.equal(got, want):
+            raise AssertionError(f"{bench} {key}: logits differ")
+        log(f"[wide] {bench} {key}: a seeded torchvision-layout state_dict "
+            f"({len(sd)} entries) through load_pretrained gives the logits "
+            "of the towers loaded directly")
+
+
+def _wide_cli(device, bench: str, root: Path, model_type: str, epochs: int,
+              *extra):
+    """``__main__.run_training`` for ``--dir bench`` in process: its
+    summary and wall seconds."""
+    from multimodal_clinical_tpu_torch import __main__ as cli
+
+    t = time.perf_counter()
+    summary = cli.run_training(
+        ["--dir", bench, "--set", f"ckpt_dir={root}", "--set",
+         f"model_type={model_type}", "--set", f"num_epochs={epochs}",
+         *extra], device=device)
+    if not math.isfinite(summary.get("test_epoch/test_avg_acc", math.nan)):
+        raise AssertionError(f"{bench} {model_type}: summary {summary}")
+    return summary, time.perf_counter() - t
+
+
+def _wide_cli_runs(device, work: Path):
+    """Phase 18c: the Enrico and FakeNews CLIs on their twins for two
+    epochs and ``--resume`` for a third (the restored optimizer state and
+    EMA equal the saved ones); then on disk corpora in the reference's
+    layouts: Enrico, FakeNews's TSVs (WordPiece over the corpus's
+    vocab.txt) and the embed variant's dialogue dataframes, one epoch
+    each."""
+    from multimodal_clinical_tpu_torch.benchmarks import disk_fixture
+    from multimodal_clinical_tpu_torch.engine import run
+
+    for bench in ("enrico", "fakenews"):
+        root = work / bench
+        twin = ("--set", f"data_path={root}/none")
+        _, wall = _wide_cli(device, bench, root, "jlogits", 2, *twin)
+        (ckpt,) = root.glob("*/ckpt")
+        last = max(ckpt.glob("last-*"),
+                   key=lambda p: int(p.name.split("-")[1]))
+        saved = torch.load(last / "state.pt", map_location="cpu",
+                           weights_only=True)
+        restored = {}
+
+        class Watched(run.Trainer):
+            def resume(self):
+                found = super().resume()
+                st = self.state
+                restored.update(
+                    step=st.step, ema=st.ema.cpu().clone(),
+                    optimizer={i: {n: v.cpu().clone() for n, v in s.items()
+                                   if torch.is_tensor(v)}
+                               for i, s in st.optimizer.state_dict()[
+                                   "state"].items()})
+                return found
+
+        trainer_cls, run.Trainer = run.Trainer, Watched
+        try:
+            _, resumed = _wide_cli(device, bench, root, "jlogits", 3,
+                                   "--resume", *twin)
+        finally:
+            run.Trainer = trainer_cls
+        same = (restored.get("step") == saved["step"]
+                and torch.equal(restored["ema"], saved["ema"].cpu())
+                and restored["optimizer"].keys()
+                == saved["optimizer"]["state"].keys())
+        for i, kept in saved["optimizer"]["state"].items():
+            for n, v in kept.items():
+                if torch.is_tensor(v):
+                    same = same and torch.equal(restored["optimizer"][i][n],
+                                                v.cpu())
+        meta = json.loads((ckpt / "meta.json").read_text())
+        if not same or meta["epochs_done"] != 3:
+            raise AssertionError(f"{bench} --resume did not restore the "
+                                 f"saved state (meta {meta})")
+        log(f"[cli] {bench} jlogits on the twin: two epochs {wall:.1f} s, "
+            f"--resume for a third {resumed:.1f} s (restored step "
+            f"{saved['step']}, the EMA and the optimizer state of "
+            f"{len(saved['optimizer']['state'])} parameters)")
+    t = time.perf_counter()
+    enrico_tree = work / "enrico_disk"
+    made = disk_fixture.build_enrico_tree(str(enrico_tree), WIDE_DISK_ENRICO,
+                                          size=(1440, 2560), distinct=8)
+    fake_tree = work / "fakenews_disk"
+    made_fn = disk_fixture.build_fakenews_tree(
+        str(fake_tree), *WIDE_DISK_FAKENEWS, size=(640, 480), distinct=16)
+    from multimodal_clinical_tpu_torch.utils import native
+
+    log(f"[disk] Enrico {made['screens']} screens ({made['bytes'] / 1e6:.1f} "
+        f"MB) and FakeNews {made_fn['rows']} posts "
+        f"({made_fn['bytes'] / 1e6:.1f} MB) written in "
+        f"{time.perf_counter() - t:.1f} s; the screenshots decode through "
+        + ("native libjpeg" if native.available() else "PIL"))
+    for bench, tree, model_type in (
+            ("enrico", enrico_tree, "jlogits"),
+            ("fakenews", fake_tree, "jlogits"),
+            ("fakenews", fake_tree, "jlogits_embed_dialogue")):
+        summary, wall = _wide_cli(device, bench, work / f"{bench}_runs",
+                                  model_type, 1, "--set",
+                                  f"data_path={tree}/")
+        rows = [json.loads(line)
+                for p in (work / f"{bench}_runs").glob("*/metrics.jsonl")
+                for line in p.read_text().splitlines()]
+        epoch = [r for r in rows if r.get("epoch") == 0][-1]
+        log(f"[disk] {bench} {model_type}: one CLI epoch through get_data "
+            f"in {wall:.1f} s ({epoch['train_epoch/samples_per_sec']:.1f} "
+            f"train samples/s over the epoch), test_avg_acc "
+            f"{summary['test_epoch/test_avg_acc']:.4f}")
+        shutil.rmtree(work / f"{bench}_runs", ignore_errors=True)
+
+
+def phase_wide_benchmarks(device, card: str, kernels):
+    """Phase 18: Enrico and FakeNews.  (a) card against CPU; then, their
+    launch counts set to 0 first and read last: (b) every model type at the
+    published geometry, and ``load_pretrained`` from torchvision-layout
+    files, (c) the CLIs on the twins with ``--resume`` and on disk
+    corpora.  No TPU kernel lies on these paths: each must record 0
+    launches."""
+    import importlib
+
+    t0 = time.perf_counter()
+    phase_wide_card_against_cpu(device)
+    log(f"[wide] 18a took {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(WIDE_DIR, ignore_errors=True)
+    launchers = {**_all_launchers(), **_probe_launchers()}
+    log(f"[wide] 18b-c at (matmul TF32, cuDNN TF32, CPU threads) "
+        f"{TORCH_DEFAULTS}")
+    try:
+        with _torch_set(*TORCH_DEFAULTS):
+            for fn in launchers.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            for bench in ("enrico", "fakenews"):
+                module = importlib.import_module(
+                    f"multimodal_clinical_tpu_torch.benchmarks.{bench}")
+                for model_type in module.MODEL_TYPES:
+                    _drive_wide_type(device, card, bench, model_type)
+                    torch.cuda.empty_cache()
+            _check_load_pretrained(device, WIDE_DIR / "weights")
+            log(f"[wide] 18b took {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            _wide_cli_runs(device, WIDE_DIR)
+            log(f"[wide] 18c took {time.perf_counter() - t:.1f} s")
+            launches = {name: fn.launches for name, fn in launchers.items()}
+            if any(launches.values()):
+                raise AssertionError("TPU kernels launched on the Enrico and "
+                                     f"FakeNews paths: {launches}")
+            for entry in kernels:
+                for bench in ("enrico", "fakenews"):
+                    entry.setdefault("launches_by_path", {})[bench] = (
+                        launches[entry["name"]])
+            log(f"[wide] launches of every TPU kernel on the Enrico and "
+                f"FakeNews paths: {launches}")
+    finally:
+        shutil.rmtree(WIDE_DIR, ignore_errors=True)
+    log(f"[wide] phase 18 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -3008,6 +3513,7 @@ def main() -> int:
     finally:
         shutil.rmtree(DISK_DIR, ignore_errors=True)
     phase_small_benchmarks(device, card, kernels)
+    phase_wide_benchmarks(device, card, kernels)
     missing = [e["name"] for e in kernels if not e["launches"]]
     if missing:
         raise AssertionError(f"kernels not launched on their path: {missing}")

@@ -4,8 +4,10 @@
 Each benchmark module exposes
     get_data(args) -> engine.run.DataBundle
     get_model_spec(args, n_train) -> (engine.spec.ModelSpec, opt_kwargs)
-The port has VGGSound, Crema-D, AVE, AV-MNIST, MIMIC and MUsTARD; each
-other name raises, naming the ROADMAP.md queue A item that ports it.
+A benchmark may also expose ``load_pretrained(args, state)``, which
+``engine/run.py`` calls between the state's init and ``init_ckpt``.  The
+port has every benchmark but Food101, which raises, naming the ROADMAP.md
+queue A item that ports it.
 """
 
 from __future__ import annotations
@@ -13,13 +15,10 @@ from __future__ import annotations
 import importlib
 
 _REGISTRY = {"vggsound": ".vggsound", "cremad": ".cremad", "ave": ".ave",
-             "avmnist": ".avmnist", "mimic": ".mimic", "mustard": ".mustard"}
+             "avmnist": ".avmnist", "mimic": ".mimic", "mustard": ".mustard",
+             "enrico": ".enrico", "fakenews": ".fakenews"}
 
-_NOT_PORTED = {
-    "enrico": 14,
-    "food101": 15,
-    "fakenews": 16,
-}
+_NOT_PORTED = {"food101": 15}
 
 
 def get_benchmark(name: str):

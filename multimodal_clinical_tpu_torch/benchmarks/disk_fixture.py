@@ -1,5 +1,5 @@
-"""Disk corpora of VGGSound, Crema-D and AVE in the reference's on-disk
-layouts, made from a seed: what ``get_data`` reads where the real dataset
+"""Disk corpora of VGGSound, Crema-D, AVE, Enrico and FakeNews in the
+reference's on-disk layouts, made from a seed: what ``get_data`` reads where the real dataset
 is present, for the tests and ``chip_smoke.py``.
 
 Each writes a few dozen distinct JPEGs and waveforms once and then their
@@ -19,6 +19,17 @@ for the CPU tests.
   ``testSet.txt`` and ``Annotations.txt`` rows ``Class&clip&good&start&
   end``; ``Audio-1004-SE/<clip>.pkl`` in pkl mode, ``Audios/<clip>.wav``
   in stream mode; ``Image-01-FPS-SE/<clip>/*.jpg``.
+
+- Enrico (enrico/get_data.py): ``design_topics.csv`` rows
+  ``screen_id,topic`` (the two ids the reference ignores included),
+  ``screenshots/<id>.jpg`` and ``wireframes/<id>.png``.
+- FakeNews (fakenews/get_data.py, fakenews/model.py): ``{train,validate,
+  test}.tsv`` rows ``id``, ``clean_title``, ``6_way_label`` (a few
+  without an image), ``images/<id>.jpg``, a WordPiece ``vocab.txt``, and
+  the embed variants' dataframe pickles ``{train,val,test}__text_image[
+  _dialogue]_dataframe.pkl`` ({"id", "embedding", "label"[,
+  "dialogue_embedding"]}, as ``tools/preprocess.py fakenews-embed``
+  writes them).
 
 The pickles are what ``tools/preprocess.py cremad-audio`` computes: the
 clip's wav tiled to 10 s (``_tile_clip_waveform``, or AVE's window) through
@@ -218,3 +229,107 @@ def build_ave_tree(root: str, n_train: int, n_val: int, n_test: int,
         with open(os.path.join(root, name), "w") as f:
             f.writelines(rows[lo:hi])
     return {"clips": n, "bytes": nbytes}
+
+
+def png_pool(seed: int, n: int, size: Tuple[int, int]) -> List[bytes]:
+    """``n`` distinct PNG wireframes of ``size`` = (width, height): flat
+    boxes on white, as Enrico's are."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    w, h = size
+    out = []
+    for _ in range(n):
+        img = np.full((h, w, 3), 255, np.uint8)
+        for _ in range(8):
+            x0, y0 = rng.integers(0, w - 2), rng.integers(0, h - 2)
+            x1 = rng.integers(x0 + 1, w)
+            y1 = rng.integers(y0 + 1, h)
+            img[y0:y1, x0:x1] = rng.integers(0, 256, 3)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "PNG")
+        out.append(buf.getvalue())
+    return out
+
+
+ENRICO_IGNORED = ("50105", "50109")
+
+
+def build_enrico_tree(root: str, n: int, n_classes: int = 20,
+                      size: Tuple[int, int] = (128, 256), quality: int = 90,
+                      distinct: int = 16, seed: int = 0) -> Dict:
+    """``design_topics.csv`` with ``n`` screens over ``n_classes`` topics
+    (cycled) plus the two ignored ids, each with a screenshot JPEG and a
+    wireframe PNG of ``size`` = (width, height)."""
+    for sub in ("screenshots", "wireframes"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    jpegs = jpeg_pool(seed, distinct, size, quality)
+    pngs = png_pool(seed + 1, distinct, size)
+    ids = [str(10000 + 7 * i) for i in range(n)] + list(ENRICO_IGNORED)
+    rows, nbytes = [], 0
+    for i, sid in enumerate(ids):
+        rows.append(f"{sid},topic_{i % n_classes:02d}\n")
+        nbytes += _write(os.path.join(root, "screenshots", sid + ".jpg"),
+                         jpegs[i % distinct])
+        nbytes += _write(os.path.join(root, "wireframes", sid + ".png"),
+                         pngs[(3 * i) % distinct])
+    with open(os.path.join(root, "design_topics.csv"), "w") as f:
+        f.writelines(["screen_id,topic\n", *rows])
+    return {"screens": n, "bytes": nbytes}
+
+
+_WORDS = ("the", "new", "photo", "of", "a", "cat", "shows", "mayor",
+          "council", "breaking", "news", "fake", "real", "dog", "running",
+          "unbelievable", "scientists", "discover", "city", "river")
+WORDPIECE_VOCAB = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", ",",
+                   "!", "?", "'", *_WORDS, "run", "##ning", "##s",
+                   "scien", "##tist", "un", "##believ", "##able")
+
+
+def _title(rng: np.random.Generator) -> str:
+    words = [str(w) for w in rng.choice(_WORDS, rng.integers(0, 12))]
+    if words and rng.random() < 0.5:
+        words[0] = words[0].capitalize()
+    if rng.random() < 0.5:
+        words.append(str(rng.choice(["!", "?", ".", "Zebra's"])))
+    return " ".join(words)
+
+
+def build_fakenews_tree(root: str, n_train: int, n_val: int, n_test: int,
+                        size: Tuple[int, int] = (96, 64), quality: int = 90,
+                        embed_dim: int = 768, distinct: int = 16,
+                        seed: int = 0) -> Dict:
+    """The token variants' three TSVs (every seventh row without its
+    image) with ``images/<id>.jpg`` of ``size`` = (width, height) and a
+    WordPiece ``vocab.txt``, and the embed variants' dataframe pickles
+    for both infixes over the same ids.  Labels cycle over the 6 ways."""
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    jpegs = jpeg_pool(seed, distinct, size, quality)
+    nbytes, offset = 0, 0
+    for tsv, split, count in (("train.tsv", "train", n_train),
+                              ("validate.tsv", "val", n_val),
+                              ("test.tsv", "test", n_test)):
+        ids = [f"fn{offset + i:05d}" for i in range(count)]
+        labels = [(offset + i) % 6 for i in range(count)]
+        offset += count
+        lines = ["id\tclean_title\t6_way_label\n"]
+        for i, (sid, label) in enumerate(zip(ids, labels)):
+            lines.append(f"{sid}\t{_title(rng)}\t{label}\n")
+            if i % 7 != 3:
+                nbytes += _write(os.path.join(root, "images", sid + ".jpg"),
+                                 jpegs[(offset + i) % distinct])
+        with open(os.path.join(root, tsv), "w") as f:
+            f.writelines(lines)
+        frame = {"id": ids, "label": np.asarray(labels, np.int64),
+                 "embedding": rng.normal(size=(count, embed_dim)).astype(
+                     np.float32)}
+        for infix in ("text_image", "text_image_dialogue"):
+            if infix == "text_image_dialogue":
+                frame = dict(frame, dialogue_embedding=rng.normal(
+                    size=(count, embed_dim)).astype(np.float32))
+            nbytes += _write(os.path.join(
+                root, f"{split}__{infix}_dataframe.pkl"), pickle.dumps(frame))
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.writelines(w + "\n" for w in WORDPIECE_VOCAB)
+    return {"rows": offset, "bytes": nbytes}

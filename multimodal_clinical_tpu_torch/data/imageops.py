@@ -83,6 +83,21 @@ def _pil_open(path: str):
     return Image.open(path).convert("RGB")
 
 
+def pil_resize_u8(path: str, width: int, height: int,
+                  bilinear: bool = True) -> np.ndarray:
+    """PIL decode to RGB and resize to (height, width, 3) uint8: BILINEAR
+    (torchvision Resize's, Enrico's), or with ``bilinear=False`` PIL's own
+    default resample (FakeNews's ``resize((224, 224))``)."""
+    from PIL import Image
+
+    img = _pil_open(path)
+    if bilinear:
+        img = img.resize((width, height), resample=Image.BILINEAR)
+    else:
+        img = img.resize((width, height))
+    return np.asarray(img, np.uint8)
+
+
 def load_frame_eval_u8(path: str, size: int = 224) -> np.ndarray:
     """Resize((size, size)) -> uint8 RGB, before normalisation (which runs
     on the card): the native decode with resize where the library loads,

@@ -108,6 +108,11 @@ def run_benchmark(args, benchmark_module, profile_dir: Optional[str] = None,
     state = create_train_state(spec, args, int(getattr(args, "seed", 0)),
                                steps_per_epoch, device=device,
                                **(opt_kwargs or {}))
+    # optional pretrained weights from local files (the reference downloads
+    # them at construction, enrico/joint_model.py:28)
+    load_pretrained = getattr(benchmark_module, "load_pretrained", None)
+    if load_pretrained is not None:
+        state = load_pretrained(args, state)
     # optional warm start from a saved checkpoint's weights (the
     # reference's analysis variants load a fixed ckpt by path,
     # enrico/joint_model_counts.py:100-107)

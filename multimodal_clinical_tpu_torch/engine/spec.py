@@ -82,7 +82,11 @@ class ModelSpec:
     # --- VICReg (enrico/ensemble_model_vicreg.py:151) ---
     vicreg_weight: float = 0.0
 
-    # --- frozen towers: arrive with Enrico (ROADMAP.md queue A, item 14) ---
+    # --- frozen towers (requires_grad=False equivalents) ---
+    # module-path prefixes ("x1_model.features") of the subtrees whose
+    # modules detach their outputs: they get no gradient, and are kept out
+    # of weight decay, so SGD leaves them bit-unchanged with no momentum
+    # (enrico/ensemble_model.py:37-38; the JAX package's masked optax chain)
     frozen_prefixes: Tuple[str, ...] = ()
 
     # legacy standalone dirs also log FLAT epoch-end metric names
@@ -111,10 +115,6 @@ class ModelSpec:
     def __post_init__(self):
         if self.contract not in CONTRACTS:
             raise ValueError(f"unknown contract {self.contract!r}")
-        if self.frozen_prefixes:
-            raise NotImplementedError(
-                "frozen_prefixes is not ported yet (ROADMAP.md queue A, "
-                "item 14: Enrico and the weight-decay mask)")
         if self.contract == "qmf" and self.n_train_samples <= 0:
             raise ValueError("qmf contract requires n_train_samples")
         if self.contract == "qmf":

@@ -10,7 +10,7 @@ step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -40,7 +40,27 @@ def make_lr_schedule(base_lr: float, use_scheduler: bool, steps_per_epoch: int,
     return schedule
 
 
-def make_optimizer(params: Iterable[nn.Parameter], lr: float,
+def decay_groups(model: nn.Module, frozen_prefixes: Sequence[str] = ()
+                 ) -> List[Dict]:
+    """``model``'s parameters as optimizer groups: those under a prefix of
+    ``frozen_prefixes`` (module paths, matched as the JAX package matches
+    its '/'-joined ones: by ``startswith``) in a second group without
+    weight decay.  A frozen tower detaches its output, so its parameters
+    get no gradient and torch's SGD skips them; the group keeps weight
+    decay off them all the same, as the JAX package's mask does, so a
+    frozen leaf stays bit-unchanged with a zero momentum even where a
+    gradient of zeros reaches it."""
+    decayed, frozen = [], []
+    for name, param in model.named_parameters():
+        (frozen if any(name.startswith(p) for p in frozen_prefixes)
+         else decayed).append(param)
+    groups = [{"params": decayed}]
+    if frozen:
+        groups.append({"params": frozen, "weight_decay": 0.0})
+    return groups
+
+
+def make_optimizer(params: Iterable, lr: float,
                    momentum: float = 0.9, weight_decay: float = 1.0e-4,
                    optimizer: str = "sgd") -> torch.optim.Optimizer:
     """The reference's per-variant optimizer.
@@ -52,7 +72,9 @@ def make_optimizer(params: Iterable[nn.Parameter], lr: float,
     ``"adam"``: torch.optim.Adam's defaults, betas (0.9, 0.999), eps 1e-8
     outside the square root, weight decay 0 — what the four reference
     model files that train with Adam pass (only ``lr``); ``momentum`` and
-    ``weight_decay`` are ignored, as in the JAX package's optax chain."""
+    ``weight_decay`` are ignored, as in the JAX package's optax chain.
+
+    ``params``: parameters, or groups (``decay_groups``)."""
     if optimizer == "adam":
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=0.0)
@@ -111,21 +133,22 @@ def create_train_state(spec: ModelSpec, args: Any, seed: int,
                        lr_override: Optional[float] = None) -> TrainState:
     """Draw ``spec.module``'s weights from ``seed``, move it to ``device``
     (channels_last), and build the optimizer, EMA and (under the qmf
-    contract) History tables there.  ``optimizer``, ``momentum`` and
-    ``weight_decay`` are the benchmark's ``opt_kwargs``."""
-    if lr_override is not None:
-        raise NotImplementedError(
-            "lr_override is not ported yet: it comes with FakeNews "
-            "(ROADMAP.md queue A, item 16)")
+    contract) History tables there.  ``optimizer``, ``momentum``,
+    ``weight_decay`` and ``lr_override`` are the benchmark's
+    ``opt_kwargs``: ``lr_override`` pins the base learning rate whatever
+    the config's ``learning_rate`` (FakeNews hard-codes Adam at 1e-4,
+    fakenews/model.py:18,230)."""
     device = resolve_device(device)
     model = init_weights(spec.module, torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last)
+    base_lr = float(args.learning_rate if lr_override is None
+                    else lr_override)
     schedule = make_lr_schedule(
-        float(args.learning_rate), bool(getattr(args, "use_scheduler", False)),
+        base_lr, bool(getattr(args, "use_scheduler", False)),
         steps_per_epoch, spec.sched_step_size, spec.sched_gamma,
         int(getattr(args, "num_epochs", 1)))
-    opt = make_optimizer(model.parameters(), schedule(0), momentum,
-                         weight_decay, optimizer)
+    opt = make_optimizer(decay_groups(model, spec.frozen_prefixes),
+                         schedule(0), momentum, weight_decay, optimizer)
     ema = torch.zeros(spec.num_modality, int(args.num_classes),
                       dtype=torch.float32, device=device)
     qmf_corr = qmf_conf = None

@@ -21,9 +21,10 @@ from ..algos import ema as ema_lib
 from ..algos import qmf as qmf_lib
 from ..algos.ogm_ge import NoiseSource, device_noise, modulate_gradients
 from ..algos.vicreg import vicreg_loss
+from ..models.common import MaskSource, dropout_source
 from . import contracts as C
 from .spec import ModelSpec
-from .state import TrainState
+from .state import TrainState, mixed_seed
 
 Batch = Dict[str, torch.Tensor]
 
@@ -164,14 +165,35 @@ def _train_metrics(spec: ModelSpec, state: TrainState, aux, loss, label,
     return new_ema, metrics
 
 
+def device_dropout(seed: int, step: int) -> MaskSource:
+    """Dropout keep masks drawn on each activation's device, one generator
+    per device seeded from (seed, step) on its own stream, in the order
+    the forward asks: a resumed run draws what the uninterrupted one did."""
+    generators = {}
+
+    def source(shape, keep_prob, device):
+        gen = generators.get(device)
+        if gen is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(mixed_seed(seed, step, stream=2))
+            generators[device] = gen
+        return torch.rand(shape, generator=gen, device=device) < keep_prob
+
+    return source
+
+
 def make_train_step(
     spec: ModelSpec,
     ogm_noise: Optional[Callable[[TrainState], NoiseSource]] = None,
+    dropout: Optional[Callable[[TrainState], MaskSource]] = None,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
-    """``ogm_noise(state)`` gives the step's OGM-GE noise source; by default
-    ``device_noise(state.seed, state.step)``."""
+    """``ogm_noise(state)`` gives the step's OGM-GE noise source, by default
+    ``device_noise(state.seed, state.step)``; ``dropout(state)`` its
+    dropout masks, by default ``device_dropout(state.seed, state.step)``."""
     if ogm_noise is None:
         ogm_noise = lambda state: device_noise(state.seed, state.step)
+    if dropout is None:
+        dropout = lambda state: device_dropout(state.seed, state.step)
     modulate = bool(spec.apply_grad_mod and spec.grad_mod_type)
 
     def train_step(state: TrainState, batch: Batch):
@@ -179,7 +201,8 @@ def make_train_step(
             batch = spec.device_preprocess(batch, state.step_generator(), True)
         label, valid = batch["label"], batch["valid"]
         state.model.train()
-        out = state.model(*_model_inputs(batch, spec))
+        with dropout_source(dropout(state)):
+            out = state.model(*_model_inputs(batch, spec))
         aux: Dict[str, Any] = {}
         loss = _train_loss(spec, state, batch, out, aux)
         state.optimizer.zero_grad(set_to_none=True)

@@ -11,8 +11,9 @@ as ``torch.nn`` modules do.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +34,16 @@ def kaiming_uniform_(w: torch.Tensor, generator=None) -> torch.Tensor:
     the LeNet convs (avmnist/joint_model.py:69-71)."""
     return nn.init.kaiming_uniform_(w, a=0.0, nonlinearity="relu",
                                     generator=generator)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator=None) -> torch.Tensor:
+    """flax's default Dense kernel init (``lecun_normal``): a normal of
+    variance 1 / fan_in truncated at two standard deviations, its scale
+    corrected for the truncation as jax's ``variance_scaling`` does."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
 
 
 def torch_default_uniform_(w: torch.Tensor, fan_in: int,
@@ -180,3 +191,56 @@ def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     padding (the output size floors) on an (N, C, H, W) map, as the towers
     hold it (the JAX ``max_pool`` takes NHWC)."""
     return F.max_pool2d(x, window)
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, output_size: Tuple[int, int]
+                        ) -> torch.Tensor:
+    """torch ``F.adaptive_avg_pool2d`` on an (N, C, H, W) map: bin i covers
+    [floor(i * L / out), ceil((i + 1) * L / out)), the bins of the JAX
+    package's NHWC ``adaptive_avg_pool2d`` (VGG11Slim's 7 x 7 pool, which
+    upsamples where the map is smaller, as Enrico's 8 x 4 is along W)."""
+    return F.adaptive_avg_pool2d(x, output_size)
+
+
+# (shape, keep_prob, device) -> bool keep mask: where a train step draws
+# its dropout masks from (``dropout_source``); None means torch's global
+# generator
+MaskSource = Callable[[Sequence[int], float, torch.device], torch.Tensor]
+_DROPOUT_SOURCE: Optional[MaskSource] = None
+
+
+@contextlib.contextmanager
+def dropout_source(source: Optional[MaskSource]):
+    """Every ``Dropout`` in train mode draws its keep mask from ``source``
+    inside this block, in the order the forward reaches them (the train
+    step's per-step generator; a test's injected masks)."""
+    global _DROPOUT_SOURCE
+    previous, _DROPOUT_SOURCE = _DROPOUT_SOURCE, source
+    try:
+        yield
+    finally:
+        _DROPOUT_SOURCE = previous
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode keep each entry with probability
+    1 - p and scale it by 1 / (1 - p), as ``x / keep_prob`` in the input's
+    dtype (torch's ``F.dropout`` multiplies by the reciprocal, which rounds
+    differently); identity in eval mode."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        keep_prob = 1.0 - self.p
+        if _DROPOUT_SOURCE is not None:
+            keep = _DROPOUT_SOURCE(tuple(x.shape), keep_prob, x.device)
+        else:
+            keep = torch.rand(x.shape, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))

@@ -1,5 +1,6 @@
-"""Scratch ResNet18 encoders (port of
-``multimodal_clinical_tpu/models/resnet.py``, the BasicBlock path).
+"""Scratch ResNet encoders (port of
+``multimodal_clinical_tpu/models/resnet.py``): the BasicBlock ResNet18 and
+the torchvision Bottleneck family (resnet152 for FakeNews).
 
 Public layout is the JAX one: NHWC in, NHWC out.  Inside, NHWC is permuted
 to NCHW, which is exactly ``channels_last``, so the convolutions run
@@ -32,8 +33,10 @@ from .common import FusedBatchNorm, TorchBatchNorm, kaiming_normal_fan_out_
 POOL_KERNELS = ("xla", "pallas")
 
 
-def _bn(features: int, dtype: Optional[torch.dtype], fused: bool) -> nn.Module:
-    return (FusedBatchNorm if fused else TorchBatchNorm)(features, dtype)
+def _bn(features: int, dtype: Optional[torch.dtype], fused: bool,
+        scale_std: float = 0.02) -> nn.Module:
+    return (FusedBatchNorm if fused else TorchBatchNorm)(features, dtype,
+                                                         scale_std)
 
 
 class Conv(nn.Module):
@@ -76,15 +79,16 @@ class StemConv(Conv):
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, planes: int, stride: int = 1,
                  downsample: bool = False,
-                 dtype: Optional[torch.dtype] = None, bn_fused: bool = False):
+                 dtype: Optional[torch.dtype] = None, bn_fused: bool = False,
+                 bn_scale_std: float = 0.02):
         super().__init__()
         self.conv1 = Conv(cin, planes, 3, stride, dtype)
-        self.bn1 = _bn(planes, dtype, bn_fused)
+        self.bn1 = _bn(planes, dtype, bn_fused, bn_scale_std)
         self.conv2 = Conv(planes, planes, 3, 1, dtype)
-        self.bn2 = _bn(planes, dtype, bn_fused)
+        self.bn2 = _bn(planes, dtype, bn_fused, bn_scale_std)
         self.downsample = (
             nn.Sequential(Conv(cin, planes, 1, stride, dtype),
-                          _bn(planes, dtype, bn_fused))
+                          _bn(planes, dtype, bn_fused, bn_scale_std))
             if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -96,13 +100,15 @@ class BasicBlock(nn.Module):
 
 class ResNetEncoder(nn.Module):
     """Residual feature extractor: (B, H, W, C_in) -> stage-4 feature map
-    (B, h, w, 8 * width), NHWC at both ends."""
+    (B, h, w, 8 * width), NHWC at both ends.  ``bn_scale_std`` 0 starts
+    every BN scale at 1 (torchvision's init, the JAX ``bn_scale_init``
+    of ``ResNet18Slim``)."""
 
     def __init__(self, in_channels: int,
                  stage_sizes: Sequence[int] = (2, 2, 2, 2), width: int = 64,
                  dtype: Optional[torch.dtype] = None,
                  stem_space_to_depth: bool = False, bn_fused: bool = False,
-                 pool_kernel: str = "xla"):
+                 pool_kernel: str = "xla", bn_scale_std: float = 0.02):
         super().__init__()
         if stem_space_to_depth:
             raise NotImplementedError(
@@ -113,7 +119,7 @@ class ResNetEncoder(nn.Module):
                              f"got {pool_kernel!r}")
         self.pool_kernel = pool_kernel
         self.conv1 = StemConv(in_channels, width, dtype)
-        self.bn1 = _bn(width, dtype, bn_fused)
+        self.bn1 = _bn(width, dtype, bn_fused, bn_scale_std)
         planes, cin = width, width
         for stage, blocks in enumerate(stage_sizes):
             layer = []
@@ -121,7 +127,7 @@ class ResNetEncoder(nn.Module):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 # BasicBlock nets change width exactly when striding
                 layer.append(BasicBlock(cin, planes, stride, stride != 1,
-                                        dtype, bn_fused))
+                                        dtype, bn_fused, bn_scale_std))
                 cin = planes
             self.add_module(f"layer{stage + 1}", nn.Sequential(*layer))
             planes *= 2
@@ -138,3 +144,74 @@ class ResNetEncoder(nn.Module):
         for stage in range(len(self.stage_sizes)):
             x = getattr(self, f"layer{stage + 1}")(x)
         return x.permute(0, 2, 3, 1)
+
+
+class BottleneckBlock(nn.Module):
+    """torchvision Bottleneck (cremad/backbone.py:213-253): 1x1 -> 3x3
+    (stride) -> 1x1 (4x), BN after each, a projection shortcut where
+    ``downsample``.  BN scale starts at 1."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 downsample: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = Conv(cin, planes, 1, 1, dtype)
+        self.bn1 = TorchBatchNorm(planes, dtype, scale_std=0.0)
+        self.conv2 = Conv(planes, planes, 3, stride, dtype)
+        self.bn2 = TorchBatchNorm(planes, dtype, scale_std=0.0)
+        self.conv3 = Conv(planes, 4 * planes, 1, 1, dtype)
+        self.bn3 = TorchBatchNorm(4 * planes, dtype, scale_std=0.0)
+        self.downsample = (
+            nn.Sequential(Conv(cin, 4 * planes, 1, stride, dtype),
+                          TorchBatchNorm(4 * planes, dtype, scale_std=0.0))
+            if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class BottleneckResNetEncoder(nn.Module):
+    """Bottleneck residual encoder (resnet50/101/152), NHWC at both ends:
+    (B, H, W, C_in) -> (B, h, w, 32 * width).  torchvision's names
+    (``conv1``, ``bn1``, ``layer{s}.{b}.conv{1,2,3}``, ``bn{1,2,3}``,
+    ``downsample.{0,1}``), so a torchvision state_dict loads as it is;
+    the projection sits on the first block of every stage, stage 0
+    included (the 4x channel expansion)."""
+
+    def __init__(self, in_channels: int = 3,
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = StemConv(in_channels, width, dtype)
+        self.bn1 = TorchBatchNorm(width, dtype, scale_std=0.0)
+        planes, cin = width, width
+        for stage, blocks in enumerate(stage_sizes):
+            layer = []
+            for b in range(blocks):
+                stride = 2 if (stage > 0 and b == 0) else 1
+                layer.append(BottleneckBlock(cin, planes, stride, b == 0,
+                                             dtype))
+                cin = 4 * planes
+            self.add_module(f"layer{stage + 1}", nn.Sequential(*layer))
+            planes *= 2
+        self.stage_sizes = tuple(stage_sizes)
+        self.out_features = cin
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view: channels_last
+        x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        for stage in range(len(self.stage_sizes)):
+            x = getattr(self, f"layer{stage + 1}")(x)
+        return x.permute(0, 2, 3, 1)
+
+
+def resnet152_encoder(in_channels: int = 3,
+                      dtype: Optional[torch.dtype] = None
+                      ) -> BottleneckResNetEncoder:
+    """torchvision resnet152's geometry, the FakeNews embed image tower
+    (fakenews/model.py:238)."""
+    return BottleneckResNetEncoder(in_channels, (3, 8, 36, 3), dtype=dtype)

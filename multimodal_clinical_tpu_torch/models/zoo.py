@@ -1,6 +1,8 @@
 """Fusion networks (port of ``multimodal_clinical_tpu/models/zoo.py``):
-``CremadFusionNet``, ``AVMnistFusionNet``, ``MimicFusionNet`` and
-``MustardFusionNet``.  ``forward(*modality_inputs)`` returns ``{"logits":
+``CremadFusionNet``, ``AVMnistFusionNet``, ``MimicFusionNet``,
+``MustardFusionNet``, ``EnricoFusionNet``, ``EnricoVGGFusionNet``,
+``FakeNewsFusionNet`` (with its ``TextTransformer``) and
+``FakeNewsEmbedFusionNet``.  ``forward(*modality_inputs)`` returns ``{"logits":
 [per-modality (B, C) logits]}``; fusion and losses live in
 ``engine/contracts.py``.  The towers are ``x1_model``, ``x2_model``, ...
 (the reference's attribute contract, which OGM-GE and the metrics
@@ -8,16 +10,20 @@ address)."""
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import TorchDense, global_avg_pool
+from .common import (
+    Dropout, TorchDense, global_avg_pool, lecun_normal_,
+)
 from .lenet import LeNet
 from .mlp import MimicMLP
-from .resnet import ResNetEncoder
+from .pretrained import ResNet18Slim, VGG11Slim
+from .resnet import BottleneckResNetEncoder, ResNetEncoder
 from .rnn import GRUNet, LstmClassifier
 
 
@@ -100,3 +106,254 @@ class MustardFusionNet(nn.Module):
     def forward(self, x1: torch.Tensor, x2: torch.Tensor, x3: torch.Tensor):
         return {"logits": [self.x1_model(x1), self.x2_model(x2),
                            self.x3_model(x3)]}
+
+
+class EnricoFusionNet(nn.Module):
+    """ResNet18Slim pair for Enrico (enrico/joint_model.py:54-77):
+    screenshot x1 and wireframe x2, each (B, H, W, 3).  ``freeze_features``
+    is True for the joint model and False for the ensemble
+    (enrico/ensemble_model.py); the embeddings feed the VICReg variant
+    (enrico/ensemble_model_vicreg.py:103-111).  ``width``: the towers'
+    stem width (see ``ResNet18Slim``)."""
+
+    def __init__(self, num_classes: int, freeze_features: bool = True,
+                 dtype: Optional[torch.dtype] = None, width: int = 64):
+        super().__init__()
+        self.x1_model = ResNet18Slim(num_classes, freeze_features, dtype,
+                                     width)
+        self.x2_model = ResNet18Slim(num_classes, freeze_features, dtype,
+                                     width)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor):
+        e1, l1 = self.x1_model(x1)
+        e2, l2 = self.x2_model(x2)
+        return {"logits": [l1, l2], "embeddings": [e1, e2]}
+
+
+class EnricoVGGFusionNet(nn.Module):
+    """VGG11Slim pair (enrico/joint_model_counts.py:58-), the analysis
+    variant."""
+
+    def __init__(self, num_classes: int, freeze_features: bool = True,
+                 dropout_p: float = 0.2, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.x1_model = VGG11Slim(num_classes, dropout_p=dropout_p,
+                                  freeze_features=freeze_features,
+                                  dtype=dtype)
+        self.x2_model = VGG11Slim(num_classes, dropout_p=dropout_p,
+                                  freeze_features=freeze_features,
+                                  dtype=dtype)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor):
+        return {"logits": [self.x1_model(x1), self.x2_model(x2)]}
+
+
+class Dense(TorchDense):
+    """flax ``nn.Dense``: torch's (out, in) layout, flax's init
+    (lecun-normal kernel, zero bias)."""
+
+    def reset_parameters(self, generator=None):
+        lecun_normal_(self.weight, self.weight.shape[1], generator)
+        nn.init.zeros_(self.bias)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` with its defaults (eps 1e-6, ``dtype`` None):
+    the statistics in at least fp32, the variance as E[x^2] - E[x]^2
+    clipped at 0, y = (x - mean) * (rsqrt(var + eps) * scale) + bias, and
+    the output in the promotion of the input with the fp32 parameters (a
+    bf16 input gives fp32)."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator=None):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        x = x.to(dtype)
+        mean = x.mean(-1, keepdim=True)
+        var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight.to(dtype))
+        return y + self.bias.to(dtype)
+
+
+class SelfAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` (0.12) as self-attention
+    under a key-padding mask, written out as its products and softmax:
+    the query scaled by 1 / sqrt(head dim) before q.k, masked logits set
+    to the dtype's lowest finite value (so an all-padding row attends
+    uniformly, where -inf masking gives NaN), the softmax in ``dtype``.
+    ``query``/``key``/``value``/``out`` hold flax's (D, H, d) and
+    (H, d, D) kernels in the torch (out, in) layout."""
+
+    def __init__(self, dim: int, num_heads: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.num_heads = num_heads
+        self.query = Dense(dim, dim, dtype)
+        self.key = Dense(dim, dim, dtype)
+        self.value = Dense(dim, dim, dtype)
+        self.out = Dense(dim, dim, dtype)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x (B, L, D); mask (B, L), True where a token is real."""
+        heads = self.num_heads
+        q, k, v = (proj(x).unflatten(-1, (heads, -1))
+                   for proj in (self.query, self.key, self.value))
+        depth = q.shape[-1]
+        # jnp.sqrt(depth) in fp32, cast to the compute dtype
+        q = q / torch.tensor(math.sqrt(depth), dtype=torch.float32).to(
+            q.dtype)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        logits = logits.masked_fill(~mask[:, None, None, :],
+                                    torch.finfo(logits.dtype).min)
+        weights = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+        return self.out(out.flatten(-2))
+
+
+class TextTransformer(nn.Module):
+    """Small pre-LN transformer text encoder over token ids (id 0 is
+    padding, masked), mean-pooled over the real tokens: (B, L) ->
+    (B, embed_dim).  The embedding gathers in ``dtype``, the position
+    table is cast to the embedding's dtype, the layer norms give fp32,
+    the MLP's GELU is the tanh approximation (flax ``nn.gelu``).  The
+    FakeNews text towers."""
+
+    def __init__(self, vocab_size: int = 30522, embed_dim: int = 256,
+                 num_heads: int = 4, num_layers: int = 2, max_len: int = 512,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.num_layers = num_layers
+        self.max_len = max_len
+        self.embedding = nn.Parameter(torch.empty(vocab_size, embed_dim))
+        self.pos = nn.Parameter(torch.empty(1, max_len, embed_dim))
+        for i in range(num_layers):
+            self.add_module(f"ln1_{i}", LayerNorm(embed_dim))
+            self.add_module(f"attn_{i}", SelfAttention(embed_dim, num_heads,
+                                                       dtype))
+            self.add_module(f"ln2_{i}", LayerNorm(embed_dim))
+            self.add_module(f"mlp1_{i}", Dense(embed_dim, 4 * embed_dim,
+                                               dtype))
+            self.add_module(f"mlp2_{i}", Dense(4 * embed_dim, embed_dim,
+                                               dtype))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        # flax's default Embed init, N(0, 1 / embed_dim); pos N(0, 0.02)
+        nn.init.normal_(self.embedding, 0.0,
+                        1.0 / math.sqrt(self.embedding.shape[1]),
+                        generator=generator)
+        nn.init.normal_(self.pos, 0.0, 0.02, generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if ids.shape[1] > self.max_len:
+            raise ValueError(
+                f"sequence length {ids.shape[1]} > max_len {self.max_len}")
+        emb = F.embedding(ids, self.embedding)
+        if self.dtype is not None:
+            emb = emb.to(self.dtype)
+        h = emb + self.pos[:, :ids.shape[1]].to(emb.dtype)
+        mask = ids != 0
+        for i in range(self.num_layers):
+            h = h + getattr(self, f"attn_{i}")(getattr(self, f"ln1_{i}")(h),
+                                               mask)
+            mlp = getattr(self, f"mlp1_{i}")(getattr(self, f"ln2_{i}")(h))
+            h = h + getattr(self, f"mlp2_{i}")(F.gelu(mlp,
+                                                      approximate="tanh"))
+        denom = mask.sum(-1, keepdim=True).clamp_min(1)
+        return (h * mask[..., None].to(h.dtype)).sum(1) / denom
+
+
+class FakeNewsFusionNet(nn.Module):
+    """Text + image (+ dialogue) late fusion for Fakeddit, the JAX
+    package's completion of the design the reference left broken
+    (fakenews/run_training.py:42-44): a ``TextTransformer`` over token ids
+    (x1), a scratch ResNet18 over (B, H, W, 3) images (x2), and with
+    ``with_dialogue`` a second ``TextTransformer`` over the
+    summarised-comment ids (x3), each with its own ``TorchDense`` head.
+    ``width`` is the image tower's stem width (64 in the JAX package; the
+    tests narrow it)."""
+
+    def __init__(self, num_classes: int, vocab_size: int = 30522,
+                 embed_dim: int = 256, num_heads: int = 4,
+                 num_layers: int = 2, with_dialogue: bool = False,
+                 dtype: Optional[torch.dtype] = None, width: int = 64):
+        super().__init__()
+        common = dict(vocab_size=vocab_size, embed_dim=embed_dim,
+                      num_heads=num_heads, num_layers=num_layers, dtype=dtype)
+        self.x1_model = TextTransformer(**common)
+        self.x1_classifier = TorchDense(embed_dim, num_classes, dtype)
+        self.x2_model = ResNetEncoder(3, width=width, dtype=dtype)
+        self.x2_classifier = TorchDense(8 * width, num_classes, dtype)
+        self.with_dialogue = with_dialogue
+        if with_dialogue:
+            self.x3_model = TextTransformer(**common)
+            self.x3_classifier = TorchDense(embed_dim, num_classes, dtype)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                x3: Optional[torch.Tensor] = None):
+        logits = [self.x1_classifier(self.x1_model(x1)),
+                  self.x2_classifier(global_avg_pool(self.x2_model(x2)))]
+        if self.with_dialogue:
+            logits.append(self.x3_classifier(self.x3_model(x3)))
+        return {"logits": logits}
+
+
+class FakeNewsEmbedFusionNet(nn.Module):
+    """The reference's one runnable FakeNews architecture: concat fusion
+    over precomputed sentence-transformer embeddings (fakenews/model.py:
+    34-148, ``_build_model`` 234-257).  relu(Linear(768 -> 300)) on the
+    text embedding x1; a Bottleneck ResNet152 on the (B, H, W, 3) image x2
+    with relu(Linear(2048 -> 300)); with ``with_dialogue`` relu(Linear(768
+    -> 300)) on the dialogue embedding x3; then concat -> dropout(relu(
+    Linear(-> 512))) -> relu(fc1) -> fc2: one fused logits head, which the
+    spec trains as jlogits with ``num_modality=1``.  ``image_stage_sizes``
+    shrinks the image tower for tests."""
+
+    def __init__(self, num_classes: int, embedding_dim: int = 768,
+                 text_feature_dim: int = 300, image_feature_dim: int = 300,
+                 dialogue_feature_dim: int = 300,
+                 fusion_output_size: int = 512, hidden_size: int = 512,
+                 dropout_p: float = 0.1, with_dialogue: bool = False,
+                 image_stage_sizes: Sequence[int] = (3, 8, 36, 3),
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.embedding_dim = embedding_dim
+        self.with_dialogue = with_dialogue
+        self.text_module = TorchDense(embedding_dim, text_feature_dim, dtype)
+        self.image_module = BottleneckResNetEncoder(
+            3, tuple(image_stage_sizes), dtype=dtype)
+        self.image_fc = TorchDense(self.image_module.out_features,
+                                   image_feature_dim, dtype)
+        fused_in = text_feature_dim + image_feature_dim
+        if with_dialogue:
+            self.dialogue_module = TorchDense(embedding_dim,
+                                              dialogue_feature_dim, dtype)
+            fused_in += dialogue_feature_dim
+        self.fusion = TorchDense(fused_in, fusion_output_size, dtype)
+        self.dropout = Dropout(dropout_p)
+        self.fc1 = TorchDense(fusion_output_size, hidden_size, dtype)
+        self.fc2 = TorchDense(hidden_size, num_classes, dtype)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                x3: Optional[torch.Tensor] = None):
+        if x1.shape[-1] != self.embedding_dim:
+            raise ValueError(
+                f"text embedding dim {x1.shape[-1]} != configured "
+                f"embedding_dim {self.embedding_dim} (text_embed_dim key)")
+        parts = [F.relu(self.text_module(x1)),
+                 F.relu(self.image_fc(global_avg_pool(
+                     self.image_module(x2))))]
+        if self.with_dialogue:
+            parts.append(F.relu(self.dialogue_module(x3)))
+        fused = self.dropout(F.relu(self.fusion(torch.cat(parts, dim=-1))))
+        return {"logits": [self.fc2(F.relu(self.fc1(fused)))]}

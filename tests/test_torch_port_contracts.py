@@ -74,8 +74,22 @@ def test_spec_rules_raise_as_the_jax_spec():
         ModelSpec(module=torch.nn.Identity(), contract="qmf")
     with pytest.raises(ValueError, match="unknown contract"):
         ModelSpec(module=torch.nn.Identity(), contract="nosuch")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ModelSpec(module=torch.nn.Identity(), frozen_prefixes=("x1_model",))
+    # frozen_prefixes is accepted, as in JAX, and keeps weight decay off
+    # the parameters under its prefixes
+    net = torch.nn.Module()
+    net.x1_model = torch.nn.Linear(2, 2)
+    net.x2_model = torch.nn.Linear(2, 2)
+    spec = ModelSpec(module=net, frozen_prefixes=("x1_model",))
+    want = jax_spec_lib.ModelSpec(module=None, frozen_prefixes=("x1_model",))
+    assert spec.frozen_prefixes == want.frozen_prefixes
+    from multimodal_clinical_tpu_torch.engine.state import decay_groups
+
+    decayed, frozen = decay_groups(net, spec.frozen_prefixes)
+    assert "weight_decay" not in decayed and frozen["weight_decay"] == 0.0
+    assert [id(p) for p in frozen["params"]] == [
+        id(p) for p in net.x1_model.parameters()]
+    assert [id(p) for p in decayed["params"]] == [
+        id(p) for p in net.x2_model.parameters()]
 
 
 @pytest.mark.parametrize("model_type", cremad.MODEL_TYPES)

@@ -176,12 +176,15 @@ def test_make_optimizer_raises_for_an_unknown_name():
 
 
 def test_create_train_state_names_what_is_not_ported():
-    """``lr_override`` comes with FakeNews (ROADMAP.md queue A, item 16)."""
-    spec = ModelSpec(module=torch.nn.Linear(2, 2))
+    """``lr_override`` (ported with FakeNews, ROADMAP.md queue A, item 16)
+    pins the base rate whatever ``learning_rate`` says, as the JAX
+    package's does."""
+    spec = ModelSpec(module=TorchDense(2, 2))
     args = SimpleNamespace(learning_rate=0.1, num_classes=2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        state.create_train_state(spec, args, 0, 1, device="cpu",
-                                 lr_override=1e-4)
+    st = state.create_train_state(spec, args, 0, 1, device="cpu",
+                                  optimizer="adam", lr_override=1e-4)
+    assert st.lr_schedule(0) == st.lr_schedule(500) == 1e-4
+    assert [g["lr"] for g in st.optimizer.param_groups] == [1e-4]
 
 
 def test_create_train_state_builds_adam_and_its_lr_stream():

@@ -15,12 +15,27 @@ optimisations): every model type of a benchmark builds the same net.
 The first train batch is full, the second has a padded tail (the loader
 repeats the last real row, ``idx`` included), which the QMF scatter must
 drop; the eval batch is the second.
+
+Enrico and FakeNews (``fakenews`` for the token variants,
+``fakenews_embed`` for the embed ones) run narrowed on both sides
+(``narrow``: ResNets at width 16 with one block a stage, the VGG stack at
+an eighth of its widths, one Bottleneck block a stage, small images) and carry uint8 images or
+token ids (each id row padded at its tail, the second row all padding).
+Their dropout masks are injected: flax's ``jax.random.bernoulli`` (in
+``flax.linen.stochastic``'s namespace) and the port's train-step mask
+source both return ``dropout_mask(i % n, shape)`` for the i-th dropout
+the forward reaches, n the net's dropout count, in the JAX (NHWC) layout
+(the JAX step traces once, so both steps draw the same masks on both
+sides).  A frozen tower's parameters get no gradient in the port.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib
 from types import SimpleNamespace
+
+import flax.linen.stochastic as flax_stochastic
 
 import jax
 import jax.numpy as jnp
@@ -35,16 +50,32 @@ from multimodal_clinical_tpu.engine.steps import (
     make_eval_step as jax_make_eval_step,
     make_train_step as jax_make_train_step,
 )
+from multimodal_clinical_tpu.data import synthetic as jax_syn
+from multimodal_clinical_tpu.models import pretrained as jax_pretrained
+from multimodal_clinical_tpu.models import zoo as jax_zoo
+from multimodal_clinical_tpu.models.resnet import (
+    BottleneckResNetEncoder as JaxBottleneckEncoder,
+    ResNetEncoder as JaxResNetEncoder,
+)
+from multimodal_clinical_tpu_torch.benchmarks import enrico as port_enrico
+from multimodal_clinical_tpu_torch.benchmarks import fakenews as port_fakenews
+from multimodal_clinical_tpu_torch.data import synthetic as port_syn
 from multimodal_clinical_tpu_torch.engine.state import create_train_state
 from multimodal_clinical_tpu_torch.engine.steps import (
     make_eval_step, make_train_step,
 )
+from multimodal_clinical_tpu_torch.models import pretrained as port_pretrained
+from multimodal_clinical_tpu_torch.models import zoo as port_zoo
+from multimodal_clinical_tpu_torch.models.common import Dropout
 from multimodal_clinical_tpu_torch.models.jax_weights import (
     load_jax_variables,
 )
+from multimodal_clinical_tpu_torch.models.resnet import (
+    BottleneckResNetEncoder, ResNetEncoder,
+)
 from torch_port_contract_harness import (
-    B, FAST_INIT, N_TRAIN, VALID_TAIL, _cached_init, _jax_opt_trees, _to_jax,
-    _to_port, patch_ogm_normal,
+    B, FAST_INIT, N_TRAIN, VALID_TAIL, _cached_init, _jax_opt_trees,
+    _Namespace, _to_jax, _to_port, patch_ogm_normal,
 )
 
 torch.set_num_threads(2)
@@ -52,16 +83,100 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 # per benchmark: (classes, per-sample shapes, learning rate, data seed);
-# AV-MNIST's inputs are pixel values / 255.  Two fp32 implementations part
-# where a ReLU or max-pool decision sits within rounding of its threshold
-# (torch_port_contract_harness.py): AV-MNIST's numpy seed 0 crosses one at
-# step 1 (losses 1.8e-5 apart), seeds 1-3 none; MIMIC's and MUsTARD's
-# seeds 0-2 none
+# AV-MNIST's inputs are pixel values / 255; a shape ("u8", shape) is uint8
+# pixels, ("ids", L) token ids, ("unit", shape) floats in [0, 1].  Two
+# fp32 implementations part where a ReLU or max-pool decision sits within
+# rounding of its threshold (torch_port_contract_harness.py): AV-MNIST's
+# numpy seed 0 crosses one at step 1 (losses 1.8e-5 apart), seeds 1-3
+# none; MIMIC's and MUsTARD's seeds 0-2 none; Enrico's seeds 0-2 none
+# (at width 8, seed 0 crossed one under ensemble_vicreg)
+SMALL_IMAGE = (64, 32, 3)
 BENCHMARKS = {
-    "avmnist": (10, [(28, 28, 1), (112, 112, 1)], 1e-2, 1),
+    "avmnist": (10, [("unit", (28, 28, 1)), ("unit", (112, 112, 1))], 1e-2,
+                1),
     "mimic": (6, [(5,), (24, 12)], 1e-2, 0),
     "mustard": (2, [(40, 371), (40, 81), (40, 300)], 5e-4, 0),
+    "enrico": (20, [("u8", SMALL_IMAGE), ("u8", SMALL_IMAGE)], 1e-2, 0),
+    "fakenews": (6, [("ids", 12), ("unit", (64, 64, 3)), ("ids", 12)], 1e-2,
+                 0),
+    "fakenews_embed": (6, [(768,), (32, 32, 3), (768,)], 1e-2, 0),
 }
+MODULES = {"fakenews_embed": "fakenews"}
+# the narrowed VGG11Slim stack (an eighth of torchvision's widths)
+NARROW_VGG = (8, "M", 16, "M", 32, 32, "M", 64, 64, "M", 64, 64, "M")
+TEXT_VOCAB = 200
+
+
+# the narrowed ResNets' stem width
+WIDTH = 16
+# the embed net's Bottleneck stem width: at 64 its fp32 gradient parts
+# from JAX's by 1.4% of the largest entry already at the first step (in
+# float64 the two agree to 1e-13): its ~10^6 ReLU inputs, BN-normalised
+# over a few values each, put some within the frameworks' rounding of
+# zero at every data seed tried (0-9, images of 32 to 128 pixels)
+BOTTLENECK_WIDTH = 8
+
+
+def _jax_one_block(**kw):
+    """ResNet18Slim's encoder at ``WIDTH`` with one block a stage (it
+    names its (2, 2, 2, 2) stages), as the contract harness's towers."""
+    return JaxResNetEncoder(**{**kw, "stage_sizes": (1, 1, 1, 1),
+                               "width": WIDTH})
+
+
+def _port_one_block(in_channels, stage_sizes, width, **kw):
+    return ResNetEncoder(in_channels, (1, 1, 1, 1), width, **kw)
+
+
+def narrow(bench, mp):
+    """The narrowed towers and twins of ``bench`` on both sides."""
+    if bench == "enrico":
+        mp.setattr(jax_pretrained, "ResNetEncoder", _jax_one_block)
+        mp.setattr(port_pretrained, "ResNetEncoder", _port_one_block)
+        mp.setattr(port_enrico, "EnricoFusionNet",
+                   functools.partial(port_zoo.EnricoFusionNet, width=WIDTH))
+        for mod in (jax_pretrained, port_pretrained):
+            mp.setattr(mod, "_VGG11_CFG", NARROW_VGG)
+        # the CLI's twin (bf16): PyTorch's CPU bf16 channels_last 3x3/s2
+        # conv gives NaN on 4 x 2 maps (21 of 100 draws at 128 -> 256
+        # channels), which 64 x 32 screens put before layer4; 128 x 64
+        # puts 8 x 4 there, which gave none
+        shapes = {"enrico": [(128, 64, 3), (128, 64, 3)]}
+    elif bench == "fakenews":
+        mp.setattr(jax_zoo, "ResNetEncoder", functools.partial(
+            JaxResNetEncoder, width=WIDTH, stage_sizes=(1, 1, 1, 1)))
+        mp.setattr(port_zoo, "ResNetEncoder", functools.partial(
+            ResNetEncoder, stage_sizes=(1, 1, 1, 1)))
+        mp.setattr(port_fakenews, "FakeNewsFusionNet",
+                   functools.partial(port_zoo.FakeNewsFusionNet, width=WIDTH))
+        shapes = {"fakenews": [(12,), (32, 32, 3)],
+                  "fakenews_dialogue": [(12,), (32, 32, 3), (12,)]}
+    elif bench == "fakenews_embed":
+        for mod, enc in ((jax_zoo, JaxBottleneckEncoder),
+                         (port_zoo, BottleneckResNetEncoder)):
+            mp.setattr(mod, "BottleneckResNetEncoder",
+                       functools.partial(enc, width=BOTTLENECK_WIDTH))
+        shapes = {"fakenews_embed": [(768,), (32, 32, 3)],
+                  "fakenews_embed_dialogue": [(768,), (32, 32, 3), (768,)]}
+    else:
+        return
+    for name, shape in shapes.items():
+        for mod in (jax_syn, port_syn):
+            mp.setitem(mod.BENCHMARK_SHAPES, name, shape)
+
+
+def _modality(rng, kind):
+    if kind[0] == "u8":
+        return rng.integers(0, 256, size=(B,) + kind[1], dtype=np.uint8)
+    if kind[0] == "ids":
+        ids = rng.integers(1, TEXT_VOCAB, size=(B, kind[1])).astype(np.int32)
+        lengths = rng.integers(1, kind[1] + 1, size=B)
+        lengths[1] = 0  # a row of padding only
+        ids[np.arange(kind[1]) >= lengths[:, None]] = 0
+        return ids
+    if kind[0] == "unit":
+        return rng.random((B,) + kind[1]).astype(np.float32)
+    return rng.normal(size=(B,) + kind).astype(np.float32)
 
 
 def batches(bench: str):
@@ -73,10 +188,8 @@ def batches(bench: str):
     for step, real in enumerate((B, VALID_TAIL)):
         rows = np.arange(B).clip(max=real - 1)  # repeat the last real row
         batch = {}
-        for i, shape in enumerate(shapes):
-            x = (rng.random((B,) + shape) if bench == "avmnist"
-                 else rng.normal(size=(B,) + shape))
-            batch[f"x{i + 1}"] = x.astype(np.float32)[rows]
+        for i, kind in enumerate(shapes):
+            batch[f"x{i + 1}"] = _modality(rng, kind)[rows]
         batch["label"] = rng.integers(0, classes, size=B)[rows]
         batch["idx"] = ids[step * B:(step + 1) * B][rows]
         batch["valid"] = (np.arange(B) < real).astype(np.float32)
@@ -84,21 +197,73 @@ def batches(bench: str):
     return out
 
 
+def _module_name(bench: str) -> str:
+    return MODULES.get(bench, bench)
+
+
 def _args(bench: str, model_type: str, **overrides):
     classes, _, lr, _ = BENCHMARKS[bench]
     args = dict(num_classes=classes, batch_size=B, learning_rate=lr,
                 num_epochs=60, use_scheduler=False, seed=0,
                 compute_dtype="float32", model_type=model_type)
+    if bench == "fakenews_embed":
+        args["embed_stage_sizes"] = (1, 1, 1, 1)
     return SimpleNamespace(**{**args, **overrides})
+
+
+def dropout_mask(i: int, shape, keep_prob: float) -> np.ndarray:
+    """The i-th dropout's keep mask, in the JAX layout."""
+    return np.random.default_rng(500 + i).random(shape) < keep_prob
+
+
+def patch_dropout(mp, n: int):
+    """flax's dropout draws and the port's train-step mask source, both
+    returning ``dropout_mask(i % n, ...)``; returns (the port's
+    ``make_train_step(dropout=...)`` argument, the draws of each side as
+    {"jax"|"port": [(shape, keep_prob), ...]})."""
+    drawn = {"jax": [], "port": []}
+
+    def bernoulli(key, p=0.5, shape=None):
+        i = len(drawn["jax"])
+        drawn["jax"].append((tuple(shape), float(p)))
+        return jnp.asarray(dropout_mask(i % n, tuple(shape), float(p)))
+
+    mp.setattr(flax_stochastic, "random", _Namespace(
+        jax.random, bernoulli=bernoulli))
+
+    def per_step(state):
+        count = [0]
+
+        def source(shape, keep_prob, device):
+            nhwc = ((shape[0], *shape[2:], shape[1]) if len(shape) == 4
+                    else tuple(shape))
+            drawn["port"].append((nhwc, float(keep_prob)))
+            mask = torch.from_numpy(dropout_mask(count[0] % n, nhwc,
+                                                 keep_prob))
+            count[0] += 1
+            if len(shape) == 4:
+                mask = mask.permute(0, 3, 1, 2)
+            return mask.to(device)
+
+        return source
+
+    return per_step, drawn
 
 
 def run_pair(bench: str, model_type: str, **arg_overrides):
     """Both sides' per-step metrics, eval outputs and final state, in the
     keys of ``torch_port_contract_harness.run_pair``'s result."""
+    with pytest.MonkeyPatch.context() as mp:
+        narrow(bench, mp)
+        return _run_pair(bench, model_type, **arg_overrides)
+
+
+def _run_pair(bench: str, model_type: str, **arg_overrides):
+    name = _module_name(bench)
     port_mod = importlib.import_module(
-        f"multimodal_clinical_tpu_torch.benchmarks.{bench}")
+        f"multimodal_clinical_tpu_torch.benchmarks.{name}")
     jax_mod = importlib.import_module(
-        f"multimodal_clinical_tpu.benchmarks.{bench}")
+        f"multimodal_clinical_tpu.benchmarks.{name}")
     args = _args(bench, model_type, **arg_overrides)
     data = batches(bench)
     jspec, jopt = jax_mod.get_model_spec(args, n_train=N_TRAIN)
@@ -107,7 +272,8 @@ def run_pair(bench: str, model_type: str, **arg_overrides):
     sample = [jnp.asarray(data[0][f"x{i + 1}"][:2]) for i in range(n_in)]
     net = type(jspec.module)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(net, "init", _cached_init(bench, net.init, FAST_INIT))
+        mp.setattr(net, "init", _cached_init(f"{bench} {net.__name__} {n_in}",
+                                             net.init, FAST_INIT))
         jstate = jax_create_train_state(jspec, args, jax.random.PRNGKey(0),
                                         sample, steps_per_epoch=100, **jopt)
     params = jax.tree_util.tree_map(np.asarray, jstate.params)
@@ -116,6 +282,7 @@ def run_pair(bench: str, model_type: str, **arg_overrides):
                                device="cpu", **opt)
     load_jax_variables(state.model, params, stats)
     init = {k: v.clone() for k, v in state.model.state_dict().items()}
+    n_dropouts = sum(isinstance(m, Dropout) for m in state.model.modules())
 
     calls = []
     with pytest.MonkeyPatch.context() as mp:
@@ -124,14 +291,18 @@ def run_pair(bench: str, model_type: str, **arg_overrides):
             return jnp.zeros(shape, dtype)
 
         patch_ogm_normal(mp, normal)
+        dropout, dropped = patch_dropout(mp, max(n_dropouts, 1))
         jtrain, jeval = jax_make_train_step(jspec), jax_make_eval_step(jspec)
-        train, evaluate = make_train_step(spec), make_eval_step(spec)
+        train = make_train_step(spec, dropout=dropout)
+        evaluate = make_eval_step(spec)
         metrics, jmetrics, grads, jax_mu = [], [], [], []
         for batch in data:
             state, m = train(state, _to_port(batch))
             metrics.append({k: float(v) for k, v in m.items()})
+            # a frozen tower's parameters get no gradient
             grads.append({k: p.grad.numpy().copy() for k, p in
-                          state.model.named_parameters()})
+                          state.model.named_parameters()
+                          if p.grad is not None})
             jstate, jm = jtrain(jstate, _to_jax(batch))
             jmetrics.append({k: float(v) for k, v in jm.items()})
             jax_mu.append(jax.tree_util.tree_map(
@@ -144,7 +315,7 @@ def run_pair(bench: str, model_type: str, **arg_overrides):
     return dict(spec=spec, jspec=jspec, opt=opt, jopt=jopt, state=state,
                 jstate=jstate, init=init, metrics=metrics,
                 jmetrics=jmetrics, grads=grads, jax_mu=jax_mu, out=out,
-                jout=jout,
+                jout=jout, dropped=dropped, n_dropouts=n_dropouts,
                 noise_calls=len(calls),
                 modulated=bool(jspec.apply_grad_mod and jspec.grad_mod_type
                                and jspec.grad_mod_type != "OGM"
@@ -156,14 +327,20 @@ def spec_equal_jax(bench, model_type):
     """Both packages' spec fields and optimizer arguments."""
     from torch_port_contract_harness import spec_fields
 
+    name = _module_name(bench)
     port_mod = importlib.import_module(
-        f"multimodal_clinical_tpu_torch.benchmarks.{bench}")
+        f"multimodal_clinical_tpu_torch.benchmarks.{name}")
     jax_mod = importlib.import_module(
-        f"multimodal_clinical_tpu.benchmarks.{bench}")
+        f"multimodal_clinical_tpu.benchmarks.{name}")
     args = _args(bench, model_type)
     spec, opt = port_mod.get_model_spec(args, n_train=N_TRAIN)
     jspec, jopt = jax_mod.get_model_spec(args, n_train=N_TRAIN)
-    assert spec_fields(spec) == spec_fields(jspec)
+    # the frozen prefixes name each package's own module paths
+    # (test_torch_port_enrico.py maps one onto the other)
+    got, want = spec_fields(spec), spec_fields(jspec)
+    assert bool(got.pop("frozen_prefixes")) == bool(
+        want.pop("frozen_prefixes"))
+    assert got == want
     assert opt == jopt
     assert type(spec.module).__name__ == type(jspec.module).__name__
 
@@ -185,11 +362,15 @@ def gather_equal(got, want):
 
 # -- the CLI -------------------------------------------------------------------
 
+# the CLI settings that narrow a benchmark beyond ``narrow``
+CLI_SETS = {"fakenews_embed": ("--set", "embed_stage_sizes=[1, 1, 1, 1]")}
+
+
 def cli_argv(bench, root, model_type, *extra):
-    return ["--dir", bench, "--set", f"model_type={model_type}",
+    return ["--dir", _module_name(bench), "--set", f"model_type={model_type}",
             "--set", "num_epochs=2", "--set", "log_every_n_steps=2",
             "--set", f"ckpt_dir={root}", "--set", f"data_path={root}/none",
-            *extra]
+            *CLI_SETS.get(bench, ()), *extra]
 
 
 def metrics_rows(root):
@@ -215,15 +396,17 @@ def cli_pair(bench, model_type, root):
     from multimodal_clinical_tpu.engine import checkpoint as jax_checkpoint
     import multimodal_clinical_tpu_torch.__main__ as port_main
 
-    net = type(importlib.import_module(
-        f"multimodal_clinical_tpu.benchmarks.{bench}").get_model_spec(
-            _args(bench, model_type), n_train=N_TRAIN)[0].module)
-
     out = {}
     with pytest.MonkeyPatch.context() as mp:
+        narrow(bench, mp)
+        jspec = importlib.import_module(
+            f"multimodal_clinical_tpu.benchmarks.{_module_name(bench)}"
+        ).get_model_spec(_args(bench, model_type), n_train=N_TRAIN)[0]
+        net = type(jspec.module)
+        n_in = jspec.num_inputs or jspec.num_modality
         # the flax init compiled: op by op it takes longer than the run
-        mp.setattr(net, "init", _cached_init(f"{bench} cli", net.init,
-                                             FAST_INIT))
+        mp.setattr(net, "init", _cached_init(
+            f"{bench} {net.__name__} {n_in} cli", net.init, FAST_INIT))
         # the JAX run's checkpoints are not read: msgpack, not orbax,
         # whose import alone takes seconds
         mp.setattr(jax_checkpoint, "_default_backend", lambda: "msgpack")
@@ -277,6 +460,7 @@ def resume_one_more_epoch(bench, model_type, root):
             return found
 
     with pytest.MonkeyPatch.context() as mp:
+        narrow(bench, mp)
         mp.setattr(port_run, "Trainer", Watched)
         port_main.run_training(cli_argv(bench, root, model_type, "--resume",
                                         "--set", "num_epochs=3"),
@@ -301,6 +485,13 @@ def preempted_run_resumes_bit_equal(bench, model_type, root, after=2):
     """SIGTERM after ``after`` train batches of epoch 0, then ``--resume``:
     weights, buffers, optimizer state, EMA, step and QMF tables end
     bit-equal to an uninterrupted two-epoch run's."""
+    with pytest.MonkeyPatch.context() as mp:
+        narrow(bench, mp)
+        return _preempted_run_resumes_bit_equal(bench, model_type, root,
+                                                after)
+
+
+def _preempted_run_resumes_bit_equal(bench, model_type, root, after):
     import os
     import signal
 
@@ -310,13 +501,15 @@ def preempted_run_resumes_bit_equal(bench, model_type, root, after=2):
         Preempted, Trainer,
     )
 
+    name = _module_name(bench)
     module = importlib.import_module(
-        f"multimodal_clinical_tpu_torch.benchmarks.{bench}")
+        f"multimodal_clinical_tpu_torch.benchmarks.{name}")
+    extra = {"embed_stage_sizes": (1, 1, 1, 1)} if "embed" in bench else {}
 
     def trainer(where):
-        args = load_config(bench, overrides=dict(
+        args = load_config(name, overrides=dict(
             model_type=model_type, num_epochs=2, log_every_n_steps=2,
-            ckpt_dir=str(where), data_path=f"{where}/none"))
+            ckpt_dir=str(where), data_path=f"{where}/none", **extra))
         data = module.get_data(args)
         spec, opt = module.get_model_spec(args, n_train=len(data.train))
         loaders = port_run.build_loaders(args, data, "cpu")
