@@ -141,13 +141,34 @@ Phases, each of which raises on failure:
    third, then on disk corpora (Enrico 128 screens of 1440 x 2560;
    FakeNews 96 + 32 + 32 posts with 640 x 480 images, the token variant
    and the embed dialogue variant) for one epoch.  No TPU kernel lies on
-   these paths: each must record 0 launches.
+   these paths: each must record 0 launches;
+19. Food101's SigLIP family: (a) the narrow net (the tiny SigLIP of
+   ``tests/test_siglip_parity.py``: width 64, 2 blocks, 32 x 32 images,
+   16 tokens) under jlogits, ensemble, ogm_ge and qmf on the card against
+   the CPU, two train steps from the same weights and dropout masks, the
+   second batch with a padded tail, TF32 off: losses, EMA and QMF tables
+   in fp32, updates and momentum in float64; then at a fresh process's
+   settings, the launch counts set to 0 first and read last: (b) each type
+   at the published geometry (siglip-base-patch16-224 in bf16, batch 128
+   of the twin's 64 ids and 224 x 224 pixels, 101 classes), a warm-up step
+   with a padded tail (the History changed at the real idx only; under
+   ogm_ge every gradient bit-unchanged by the modulation), timed steps, an
+   eval step and one profiled step; (e) a seeded siglip-base
+   ``model.safetensors`` through ``load_pretrained`` and the towers'
+   fp32 forward on the card against the CPU; (c) ``python3 -m
+   multimodal_clinical_tpu_torch --dir food101`` (qmf) on the twin for two
+   epochs, ``--resume`` for a third in process (the History, momentum and
+   EMA restored as saved), the other three types for one epoch each; (d)
+   ``benchmarks/disk_fixture.py::build_food101_tree`` files (256 + 32 +
+   32 samples at the published geometry) through ``get_data``, the first
+   batch on the card against its gather, one CLI epoch.  No TPU kernel
+   lies on this path: each must record 0 launches.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; launches made to compare or time a kernel do not count.  The
 kernels' line gives each kernel's launches on the main path as
 ``launches`` and on the later paths under ``launches_by_path`` (0 on
-AV-MNIST's, MIMIC's, MUsTARD's, Enrico's and FakeNews's); the
+AV-MNIST's, MIMIC's, MUsTARD's, Enrico's, FakeNews's and Food101's); the
 max-pool's entries list the shapes checked on the phase 14 path under
 ``checked_shapes_by_path``.
 
@@ -1753,11 +1774,14 @@ def _contract_steps(dev, dtype, model_type, mode, noise, preprocess=None):
         ema=cpu(state.ema))
 
 
-def _check_tables(card, host, rtol, atol, what):
+def _check_tables(card, host, rtol, atol, what, batches=None):
+    """The QMF tables, card against CPU, written at the real idx of
+    ``batches`` (by default phase 13's) only."""
     if card["tables"] is None and host["tables"] is None:
         return "no tables"
     seen = np.unique(np.concatenate([
-        b["idx"][b["valid"] > 0].numpy() for b in _contract_batches("cpu")]))
+        b["idx"][b["valid"] > 0].numpy()
+        for b in batches or _contract_batches("cpu")]))
     for name, got, want in zip(("correctness", "confidence"), card["tables"],
                                host["tables"]):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol,
@@ -2168,8 +2192,9 @@ def phase_disk_build():
 
 def _check_first_batch(loader, dataset, what: str):
     """The first batch of epoch 0 as it reaches the card through the pinned
-    side-stream copy equals the dataset's gather at the sampler's indices,
-    bit for bit; returns the gather."""
+    side-stream copy equals the dataset's gather at the sampler's indices
+    (its float features cast as the Loader casts them), bit for bit;
+    returns the gather."""
     loader.set_epoch(0)
     idx = np.asarray(loader.sampler.indices(0))[:loader.batch_size]
     it = iter(loader)
@@ -2180,9 +2205,8 @@ def _check_first_batch(loader, dataset, what: str):
     if not np.array_equal(batch["idx"].cpu().numpy(), idx):
         raise AssertionError(f"{what}: first batch idx differ")
     for key, arr in want.items():
-        got = batch[key]
-        if got.device != loader.device or not np.array_equal(
-                got.cpu().numpy(), arr):
+        got, arr = batch[key], loader._host_tensor(key, arr)
+        if got.device != loader.device or not torch.equal(got.cpu(), arr):
             raise AssertionError(f"{what}: first batch {key} differs from "
                                  "the gather")
     log(f"[disk] {what}: the first train batch on the card equals the "
@@ -2758,9 +2782,10 @@ def phase_small_card_against_cpu(device):
                 f"{card['losses']} cpu {host['losses']}, {tail}")
 
 
-def _profiled_step(train_step, state, batch):
+def _profiled_step(train_step, state, batch, kernels=None):
     """One train step under ``torch.profiler``: (its wall ms, the device's
-    busy ms in it)."""
+    busy ms in it); ``kernels``, where given, receives the device us by
+    kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     from multimodal_clinical_tpu_torch.benchmarks.profile_vggsound import (
@@ -2774,7 +2799,10 @@ def _profiled_step(train_step, state, batch):
         state, _ = train_step(state, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    busy = sum(kernel_times(prof).values()) / 1e3
+    times = kernel_times(prof)
+    busy = sum(times.values()) / 1e3
+    if kernels is not None:
+        kernels.update(times)
     if not 0 < busy <= wall:
         raise AssertionError(f"device busy {busy:.3f} ms in {wall:.3f} ms: "
                              "the trace's kernel times are wrong")
@@ -2843,13 +2871,15 @@ def _drive_small_type(device, card: str, bench: str, model_type: str):
     return median
 
 
-def _small_cli_runs(device, bench: str, work: Path):
-    """Phase 17c for one benchmark: the CLI on the twin for two epochs (as
-    ``python3 -m multimodal_clinical_tpu_torch --dir <bench>`` for
-    SMALL_CLI_PROCESS, else its ``run_training`` in process), ``--resume``
-    for a third in process (the restored optimizer state, EMA and QMF
-    tables equal the saved ones), then every other model type for one
-    epoch in process."""
+def _small_cli_runs(device, bench: str, work: Path, model_type=None,
+                    others=None):
+    """Phase 17c (and 19c) for one benchmark: the CLI on the twin for two
+    epochs in ``model_type`` (by default SMALL_CLI's; as ``python3 -m
+    multimodal_clinical_tpu_torch --dir <bench>`` for SMALL_CLI_PROCESS and
+    food101, else its ``run_training`` in process), ``--resume`` for a
+    third in process (the restored optimizer state, EMA and QMF tables
+    equal the saved ones), then each of ``others`` (by default every other
+    model type) for one epoch in process."""
     import importlib
 
     from multimodal_clinical_tpu_torch import __main__ as cli
@@ -2857,12 +2887,13 @@ def _small_cli_runs(device, bench: str, work: Path):
 
     module = importlib.import_module(
         f"multimodal_clinical_tpu_torch.benchmarks.{bench}")
-    model_type = SMALL_CLI[bench]
+    model_type = model_type or SMALL_CLI[bench]
+    others = [t for t in (others or module.MODEL_TYPES) if t != model_type]
     root = work / bench
     base = ["--set", f"ckpt_dir={root}", "--set", f"data_path={root}/none"]
     argv = base + ["--set", f"model_type={model_type}", "--set",
                    "num_epochs=2"]
-    if bench == SMALL_CLI_PROCESS:
+    if bench in (SMALL_CLI_PROCESS, "food101"):
         out = _cli(argv, bench=bench)
         summary = ast.literal_eval(out.strip().splitlines()[-1])
     else:
@@ -2920,9 +2951,7 @@ def _small_cli_runs(device, bench: str, work: Path):
         f"restored step {saved['step']}, the EMA, the optimizer's {kinds}"
         + (" and the History" if saved["qmf_correctness"] is not None
            else "") + "; three epochs done")
-    for other in module.MODEL_TYPES:
-        if other == model_type:
-            continue
+    for other in others:
         t = time.perf_counter()
         summary = cli.run_training(
             ["--dir", bench, "--set", f"ckpt_dir={root / other}", "--set",
@@ -3484,6 +3513,376 @@ def phase_wide_benchmarks(device, card: str, kernels):
     log(f"[wide] phase 18 took {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 19: Food101's SigLIP family ----------------------------------------
+
+FOOD_TYPES = ("jlogits", "ensemble", "ogm_ge", "qmf")
+# 19a: tests/test_siglip_parity.py's tiny SigLIP; two steps of 6 rows, the
+# second with 4 real ones, from a History of 12 rows
+FOOD_NARROW = dict(width=64, layers=2, heads=2, mlp_dim=128, patch=16,
+                   image_size=32, text_len=16, vocab=1000)
+FOOD_ROWS, FOOD_VALID, FOOD_TABLE = 6, 4, 12
+# 19b: the published geometry, nothing cut (configs/food101.yaml,
+# models/siglip.py): siglip-base-patch16-224 in bf16 at batch 128 over 101
+# classes, the twin's 64 ids and 224 x 224 x 3 pixels; the warm-up batch
+# with 4 padded rows
+FOOD_BATCH, FOOD_PAD, FOOD_TIMED = 128, 4, 5
+# kernels listed from jlogits' profiled step
+FOOD_TOP = 10
+# 19d: the corpus, cut in rows only (train, dev, test)
+FOOD_DISK = (256, 32, 32)
+# 19e: the seeded checkpoint's towers in fp32 (TF32 off), card against
+# CPU: the same products summed in another order through 12 blocks
+FOOD_LOAD_TOL = 1e-4
+FOOD_DIR = WORK_DIR / "food101"
+
+
+@contextlib.contextmanager
+def _narrow_food():
+    """``Food101FusionNet`` builds the FOOD_NARROW SigLIP while open (it
+    looks ``SigLIPModel`` up in ``models/siglip.py`` when built)."""
+    import functools
+
+    from multimodal_clinical_tpu_torch.models import siglip
+
+    wide = siglip.SigLIPModel
+    siglip.SigLIPModel = functools.partial(wide, **FOOD_NARROW)
+    try:
+        yield
+    finally:
+        siglip.SigLIPModel = wide
+
+
+def _food_spec(model_type: str, n_train: int, **overrides):
+    """(spec, optimizer arguments, args) of ``model_type`` from
+    configs/food101.yaml."""
+    from multimodal_clinical_tpu_torch.benchmarks import food101
+    from multimodal_clinical_tpu_torch.config import load_config
+
+    args = load_config("food101", overrides=dict(model_type=model_type,
+                                                 **overrides))
+    spec, opt = food101.get_model_spec(args, n_train=n_train)
+    return spec, opt, args
+
+
+def _food_batches(dev, valid, seed: int = 0):
+    """FOOD_ROWS-row batches of the narrow net, one per entry of ``valid``
+    (its count of real rows; the rest repeat the last real one, ``idx``
+    included): ids below the vocabulary, pixels in [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(FOOD_TABLE)
+    size, length = FOOD_NARROW["image_size"], FOOD_NARROW["text_len"]
+    out = []
+    for step, real in enumerate(valid):
+        pick = np.arange(FOOD_ROWS).clip(max=real - 1)
+        batch = {
+            "x1": rng.integers(0, FOOD_NARROW["vocab"], (FOOD_ROWS, length)),
+            "x2": rng.uniform(-1, 1, (FOOD_ROWS, size, size, 3)),
+            "label": rng.integers(0, 101, FOOD_ROWS),
+            "idx": order[step * FOOD_ROWS:(step + 1) * FOOD_ROWS]}
+        batch = {k: v[pick] for k, v in batch.items()}
+        batch["valid"] = (np.arange(FOOD_ROWS) < real).astype(np.float32)
+        out.append({k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    for k, v in batch.items()})
+    return out
+
+
+def _food_steps(dev, dtype, model_type: str):
+    """Two train steps of the narrow net in fp32 compute (``dtype`` the
+    parameters' and pixels'), the heads' dropout masks drawn on the CPU
+    for both devices; in the keys of ``_small_steps``, with the QMF
+    tables."""
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+    from multimodal_clinical_tpu_torch.engine.steps import make_train_step
+
+    with _narrow_food():
+        spec, opt, args = _food_spec(model_type, FOOD_TABLE,
+                                     compute_dtype="float32")
+    state = create_train_state(spec, args, 0, steps_per_epoch=100,
+                               device=dev, **opt)
+    state.model.to(dtype)
+    cpu = lambda t: t.detach().cpu().clone()
+    init = {k: cpu(v) for k, v in state.model.state_dict().items()}
+    step = make_train_step(
+        spec, dropout=lambda st: _injected_dropout(st.step))
+    named = dict(state.model.named_parameters())
+    losses, grads = [], []
+    for batch in _food_batches(dev, (FOOD_ROWS, FOOD_VALID)):
+        batch["x2"] = batch["x2"].to(dtype)
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["train_loss"]))
+        grads.append({k: cpu(p.grad) for k, p in named.items()})
+    moments = {k: {n: cpu(v) for n, v in state.optimizer.state[p].items()
+                   if torch.is_tensor(v) and v.shape == p.shape}
+               for k, p in named.items()}
+    tables = (None if state.qmf_correctness is None else
+              (cpu(state.qmf_correctness), cpu(state.qmf_confidence)))
+    return dict(losses=losses, init=init, grads=grads, moments=moments,
+                final={k: cpu(v) for k, v in state.model.state_dict().items()},
+                ema=cpu(state.ema), tables=tables,
+                lr=state.optimizer.param_groups[0]["lr"], adam=False)
+
+
+def phase_food_card_against_cpu(device):
+    """Phase 19a: the narrow Food101 net under each SigLIP model type, two
+    train steps on the card and on the CPU from the same weights, inputs
+    and dropout masks, TF32 off: losses, EMA and QMF tables in fp32;
+    updates and momentum in float64 (``_compare_f64_small_steps``; the key
+    projections' biases, whose gradient is zero in exact arithmetic, held
+    to rounding)."""
+    cpu = torch.device("cpu")
+    with _torch_set(False, False, 2):
+        for model_type in FOOD_TYPES:
+            what = f"food101 {model_type}"
+            card, host = (_food_steps(device, torch.float32, model_type),
+                          _food_steps(cpu, torch.float32, model_type))
+            _compare_fp32_steps(card, host, what)
+            seen = _food_batches("cpu", (FOOD_ROWS, FOOD_VALID))
+            tables = _check_tables(card, host, CPU_TABLE_RTOL,
+                                   CPU_TABLE_ATOL, what, seen)
+            card, host = (_food_steps(device, torch.float64, model_type),
+                          _food_steps(cpu, torch.float64, model_type))
+            tail = _compare_f64_small_steps(card, host, what,
+                                            rounding=(".k_proj.bias",))
+            tail += "; float64 " + _check_tables(
+                card, host, F64_TABLE_RTOL, F64_TABLE_ATOL, what, seen)
+            log(f"[food101] card against CPU, {what}: fp32 {tables}; "
+                f"float64 losses card {card['losses']} cpu "
+                f"{host['losses']}, {tail}")
+
+
+def _food_full_batches(dataset, device):
+    """The twin's first FOOD_BATCH rows, once with FOOD_PAD padded rows
+    (repeating the last real one, ``idx`` included) and once whole, the
+    pixels cast to bf16 as the Loader casts them for the bf16 net."""
+    out = []
+    for real in (FOOD_BATCH - FOOD_PAD, FOOD_BATCH):
+        idx = np.arange(FOOD_BATCH).clip(max=real - 1)
+        batch = dataset.gather(idx)
+        batch["idx"] = idx.astype(np.int32)
+        batch["valid"] = (np.arange(FOOD_BATCH) < real).astype(np.float32)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        batch["x2"] = batch["x2"].to(torch.bfloat16)
+        out.append(batch)
+    return out
+
+
+def _drive_food_type(device, card: str, model_type: str, data):
+    """One warm-up step (a padded tail: the QMF History must change at the
+    real idx only; under ogm_ge the modulation must leave every gradient
+    bit-unchanged), FOOD_TIMED timed steps and one eval step of
+    ``model_type`` at the published geometry in bf16, then one profiled
+    step.  Returns the step median."""
+    from multimodal_clinical_tpu_torch.engine import steps
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+
+    torch.cuda.reset_peak_memory_stats()
+    spec, opt, args = _food_spec(model_type, len(data.train))
+    state = create_train_state(spec, args, 0, steps_per_epoch=100,
+                               device=device, **opt)
+    batches = _food_full_batches(data.train, device)
+    train_step = steps.make_train_step(spec)
+    eval_step = steps.make_eval_step(spec)
+    tables = (None if state.qmf_correctness is None
+              else state.qmf_correctness.clone())
+    modulated = []
+
+    def unchanged_by_modulation(model, *args, **kwargs):
+        before = {n: p.grad.clone() for n, p in model.named_parameters()}
+        modulate(model, *args, **kwargs)
+        modulated.append(all(torch.equal(p.grad, before[n])
+                             for n, p in model.named_parameters()))
+
+    modulate, steps.modulate_gradients = (steps.modulate_gradients,
+                                          unchanged_by_modulation)
+    try:
+        state, metrics = train_step(state, batches[0])
+    finally:
+        steps.modulate_gradients = modulate
+    if modulated != ([True] if model_type == "ogm_ge" else []):
+        raise AssertionError(f"food101 {model_type}: modulation changed a "
+                             f"gradient or did not run ({modulated})")
+    if tables is not None:
+        changed = np.flatnonzero((state.qmf_correctness != tables).any(
+            dim=0).cpu().numpy())
+        if not np.array_equal(changed, np.arange(FOOD_BATCH - FOOD_PAD)):
+            raise AssertionError(f"food101 qmf: History changed at {changed}")
+    losses, step_ms = [float(metrics["train_loss"])], []
+    for _ in range(FOOD_TIMED):
+        t = time.perf_counter()
+        state, metrics = train_step(state, batches[1])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["train_loss"]))
+    out = eval_step(state, batches[1])
+    kernels = {}
+    wall, busy = _profiled_step(train_step, state, batches[1], kernels)
+    if model_type == "jlogits":
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:FOOD_TOP]
+        log(f"[food101 jlogits] the profiled step's {len(kernels)} kernels, "
+            f"the {FOOD_TOP} largest (device ms): " + "; ".join(
+                f"{name[:72]} {us / 1e3:.3f}" for name, us in top))
+    if not all(math.isfinite(x) for x in losses) or out[
+            "logits_stack"].shape != (FOOD_BATCH, 2, 101) or not bool(
+            torch.isfinite(out["logits_stack"]).all()):
+        raise AssertionError(f"food101 {model_type}: losses {losses}, eval "
+                             f"{tuple(out['logits_stack'].shape)}")
+    median = statistics.median(step_ms)
+    idle = 1 - busy / median
+    if not 0 <= idle < 1:
+        raise AssertionError(f"food101 {model_type}: device busy {busy:.3f} "
+                             f"ms in a {median:.3f} ms median step")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"[food101 {model_type}] {card}: {args.compute_dtype} SGD at lr "
+        f"{state.optimizer.param_groups[0]['lr']:g}, {n_params} parameters; "
+        f"train step median {median:.3f} ms over {FOOD_TIMED} "
+        f"({min(step_ms):.3f}-{max(step_ms):.3f}); "
+        f"{FOOD_BATCH / median * 1e3:.1f} samples/s at batch {FOOD_BATCH}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+        f"one profiled step {wall:.3f} ms, device busy {busy:.3f} ms in it, "
+        f"idle share {idle:.3f} of the median step; warm-up loss "
+        f"{losses[0]:.5f}, eval loss {float(out['loss']):.5f}"
+        + ("; the modulation left every gradient bit-unchanged"
+           if model_type == "ogm_ge" else ""))
+    return median
+
+
+def _food_load_pretrained(device, data):
+    """Phase 19e: a seeded siglip-base HF-layout ``model.safetensors``
+    (``logit_scale`` and ``logit_bias`` included), written by the
+    ``safetensors`` package, through ``load_pretrained``'s
+    ``siglip_weights`` (the port's own reader): the towers hold it bit for
+    bit and the heads are untouched; then the towers loaded from it in
+    fp32 (TF32 off), their forward on the card against the CPU."""
+    from safetensors.torch import save_file
+
+    from multimodal_clinical_tpu_torch.benchmarks import food101
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+    from multimodal_clinical_tpu_torch.models import siglip
+
+    spec, opt, args = _food_spec("qmf", len(data.train))
+    state = create_train_state(spec, args, 0, steps_per_epoch=10,
+                               device=device, **opt)
+    gen = torch.Generator().manual_seed(13)
+    sd = {}
+    for key, value in state.model.model.state_dict().items():
+        noise = torch.randn(value.shape, generator=gen) * 0.02
+        sd[key] = noise + 1.0 if "norm" in key and key.endswith(
+            "weight") else noise
+    sd["logit_scale"], sd["logit_bias"] = torch.ones(1), -torch.ones(1)
+    where = FOOD_DIR / "siglip"
+    where.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    save_file(sd, str(where / "model.safetensors"))
+    size = (where / "model.safetensors").stat().st_size
+    head = state.model.x1_model.mlp[0].weight.clone()
+    args.siglip_weights = str(where)
+    state = food101.load_pretrained(args, state)
+    loaded = time.perf_counter() - t
+    got = state.model.model.state_dict()
+    if any(not torch.equal(got[k].cpu(), sd[k]) for k in got) or not (
+            torch.equal(state.model.x1_model.mlp[0].weight, head)):
+        raise AssertionError("food101 siglip_weights: the towers do not hold "
+                             "the file, or a head moved")
+    batch = data.train.gather(np.arange(2))
+    ids, pixels = (torch.from_numpy(batch[k]) for k in ("x1", "x2"))
+    outs = []
+    with _torch_set(False, False, TORCH_DEFAULTS[2]), torch.no_grad():
+        for dev in (device, torch.device("cpu")):
+            towers = siglip.load_hf_siglip_params(
+                str(where), siglip.SigLIPModel()).to(dev)
+            outs.append([o.cpu() for o in towers(ids.to(dev),
+                                                 pixels.to(dev))])
+    errs = [_scaled_err(c, h) for c, h in zip(*outs)]
+    if not max(errs) <= FOOD_LOAD_TOL:
+        raise AssertionError(f"food101 siglip_weights: towers card against "
+                             f"CPU {errs}")
+    log(f"[food101] siglip_weights: a seeded siglip-base model.safetensors "
+        f"({size / 1e6:.1f} MB, {len(sd)} entries) written and loaded in "
+        f"{loaded:.1f} s; the towers hold it bit for bit; their fp32 "
+        f"forward on the card against the CPU: text {errs[0]:.2e}, image "
+        f"{errs[1]:.2e} of the largest entry (limit {FOOD_LOAD_TOL:g})")
+
+
+def _food_disk(device):
+    """Phase 19d: a corpus of FOOD_DISK rows through ``get_data``: the
+    first train batch on the card against its gather, then one CLI epoch
+    of qmf on it."""
+    from multimodal_clinical_tpu_torch.benchmarks import disk_fixture, food101
+    from multimodal_clinical_tpu_torch.config import load_config
+    from multimodal_clinical_tpu_torch.engine import run
+
+    tree = FOOD_DIR / "disk"
+    t = time.perf_counter()
+    made = disk_fixture.build_food101_tree(str(tree), *FOOD_DISK)
+    log(f"[disk] Food101 {made['rows']} samples ({made['bytes'] / 1e6:.1f} "
+        f"MB of .npy) written in {time.perf_counter() - t:.1f} s")
+    args = load_config("food101", overrides=dict(data_path=f"{tree}/"))
+    data = food101.get_data(args)
+    if data.synthetic or not isinstance(data.train,
+                                        food101.Food101DiskDataset):
+        raise AssertionError("food101 get_data did not read the corpus")
+    _check_first_batch(run.build_loaders(args, data, device)[0], data.train,
+                       "Food101")
+    runs = FOOD_DIR / "disk_runs"
+    summary, wall = _wide_cli(device, "food101", runs, "qmf", 1, "--set",
+                              f"data_path={tree}/")
+    rows = [json.loads(line) for p in runs.glob("*/metrics.jsonl")
+            for line in p.read_text().splitlines()]
+    epoch = [r for r in rows if r.get("epoch") == 0][-1]
+    log(f"[disk] food101 qmf: one CLI epoch through get_data in {wall:.1f} s "
+        f"({epoch['train_epoch/samples_per_sec']:.1f} train samples/s over "
+        f"the epoch), test_avg_acc {summary['test_epoch/test_avg_acc']:.4f}")
+
+
+def phase_food101(device, card: str, kernels):
+    """Phase 19: Food101's SigLIP family.  (a) card against CPU; then, the
+    launch counts set to 0 first and read last: (b) each model type at the
+    published geometry, (e) ``load_pretrained`` from a seeded
+    ``model.safetensors``, (c) the CLI on the twin with ``--resume`` and
+    the other types, (d) the disk corpus.  No TPU kernel lies on this
+    path: each must record 0 launches."""
+    from multimodal_clinical_tpu_torch.benchmarks import food101
+    from multimodal_clinical_tpu_torch.config import load_config
+
+    t0 = time.perf_counter()
+    phase_food_card_against_cpu(device)
+    log(f"[food101] 19a took {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(FOOD_DIR, ignore_errors=True)
+    launchers = {**_all_launchers(), **_probe_launchers()}
+    try:
+        with _torch_set(*TORCH_DEFAULTS):
+            for fn in launchers.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            data = food101.get_data(load_config("food101", overrides=dict(
+                data_path=str(FOOD_DIR / "none"))))
+            for model_type in FOOD_TYPES:
+                _drive_food_type(device, card, model_type, data)
+                torch.cuda.empty_cache()
+            _food_load_pretrained(device, data)
+            torch.cuda.empty_cache()
+            log(f"[food101] 19b and 19e took {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            _small_cli_runs(device, "food101", FOOD_DIR, model_type="qmf",
+                            others=FOOD_TYPES)
+            log(f"[food101] 19c took {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            _food_disk(device)
+            log(f"[food101] 19d took {time.perf_counter() - t:.1f} s")
+            launches = {name: fn.launches for name, fn in launchers.items()}
+            if any(launches.values()):
+                raise AssertionError("TPU kernels launched on the Food101 "
+                                     f"path: {launches}")
+            for entry in kernels:
+                entry.setdefault("launches_by_path", {})["food101"] = (
+                    launches[entry["name"]])
+            log(f"[food101] launches of every TPU kernel on the Food101 "
+                f"path: {launches}")
+    finally:
+        shutil.rmtree(FOOD_DIR, ignore_errors=True)
+    log(f"[food101] phase 19 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -3514,7 +3913,11 @@ def main() -> int:
         shutil.rmtree(DISK_DIR, ignore_errors=True)
     phase_small_benchmarks(device, card, kernels)
     phase_wide_benchmarks(device, card, kernels)
+    phase_food101(device, card, kernels)
     missing = [e["name"] for e in kernels if not e["launches"]]
+    if any(e.get("launches_by_path", {}).get("food101") != 0
+           for e in kernels):
+        raise AssertionError("a kernel lacks its food101: 0 launches")
     if missing:
         raise AssertionError(f"kernels not launched on their path: {missing}")
     print(card)

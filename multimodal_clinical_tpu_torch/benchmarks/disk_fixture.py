@@ -1,5 +1,5 @@
-"""Disk corpora of VGGSound, Crema-D, AVE, Enrico and FakeNews in the
-reference's on-disk layouts, made from a seed: what ``get_data`` reads where the real dataset
+"""Disk corpora of VGGSound, Crema-D, AVE, Enrico, FakeNews and Food101 in
+the reference's on-disk layouts, made from a seed: what ``get_data`` reads where the real dataset
 is present, for the tests and ``chip_smoke.py``.
 
 Each writes a few dozen distinct JPEGs and waveforms once and then their
@@ -332,4 +332,39 @@ def build_fakenews_tree(root: str, n_train: int, n_val: int, n_test: int,
                 root, f"{split}__{infix}_dataframe.pkl"), pickle.dumps(frame))
     with open(os.path.join(root, "vocab.txt"), "w") as f:
         f.writelines(w + "\n" for w in WORDPIECE_VOCAB)
+    return {"rows": offset, "bytes": nbytes}
+
+
+def build_food101_tree(root: str, n_train: int, n_dev: int, n_test: int,
+                       n_classes: int = 101, text_len: int = 64,
+                       image_size: int = 224, vocab: int = 32000,
+                       distinct: int = 8, seed: int = 0) -> Dict:
+    """The three split lists over ``n_classes`` labels (cycled) and each
+    sample's ``.npy`` pair: ids below ``vocab`` with a padded tail (id 1),
+    pixels in [-1, 1] (the processor's normalisation).  ``distinct``
+    arrays of each kind are written under every sample's name."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "tokens"), exist_ok=True)
+    ids = rng.integers(2, vocab, (distinct, 1, text_len))
+    for row, length in enumerate(rng.integers(4, text_len + 1, distinct)):
+        ids[row, 0, length:] = 1
+    pixels = rng.uniform(-1.0, 1.0, (distinct, 3, image_size, image_size)
+                         ).astype(np.float32)
+    nbytes, offset = 0, 0
+    for split, count in (("train", n_train), ("dev", n_dev),
+                         ("test", n_test)):
+        lines = []
+        for i in range(offset, offset + count):
+            stem = f"food_{i:06d}"
+            lines.append(f"{stem}.jpg {i % n_classes}\n")
+            k = i % distinct
+            px = pixels[k][None] if i % 3 == 2 else pixels[k]
+            for suffix, arr in (("input_ids", ids[k]), ("pixel_values", px)):
+                buf = io.BytesIO()
+                np.save(buf, arr)
+                nbytes += _write(os.path.join(
+                    root, "tokens", f"{stem}_{suffix}.npy"), buf.getvalue())
+        offset += count
+        with open(os.path.join(root, f"my_{split}_food.txt"), "w") as f:
+            f.writelines(lines)
     return {"rows": offset, "bytes": nbytes}

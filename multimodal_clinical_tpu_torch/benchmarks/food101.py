@@ -1,0 +1,137 @@
+"""UPMC Food-101: recipe text and food image, 101-way, on the SigLIP dual
+tower (port of ``multimodal_clinical_tpu/benchmarks/food101.py``).
+
+Data (reference food101/get_data.py:101-117): per sample, the SigLIP
+processor's ``input_ids`` (64 tokens) and ``pixel_values`` (224 x 224,
+stored CHW, some as (1, 3, H, W)) as ``.npy`` files under
+``<data_path>/tokens/<stem>_{input_ids,pixel_values}.npy``, listed with
+their labels by ``my_{train,dev,test}_food.txt``; the pixels are turned
+into HWC here.  Without the lists, the synthetic twin.
+
+Model types (food101/__init__.py):
+  jlogits / ensemble: the SigLIP towers fully trainable with two MLP
+      heads (768 -> 512 -> 512 -> C, dropout 0.2), StepLR(50, 0.5)
+      (food101/joint_model.py:83);
+  ogm_ge: the heads are ``x1_model``/``x2_model`` and hold no 4-D
+      parameter, so the modulation is the reference's no-op
+      (food101/joint_model_ogm_ge.py);
+  qmf: the QMF loss over the two heads' logits (food101/joint_model_qmf.py).
+The legacy ``jprobas`` / ``jprobas_jlogits`` (a frozen ResNet50 and a
+frozen BERT) raise until ROADMAP.md queue A item 15b ports them.
+
+The train split is read in list order every epoch: the reference's train
+DataLoader passes neither a sampler nor shuffle (food101/run_training.py:
+39-45).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Tuple
+
+import numpy as np
+
+from ..data.synthetic import make_synthetic_splits
+from ..engine.run import DataBundle
+from ..engine.spec import ModelSpec, resolve_dtype
+from ..models.siglip import load_hf_siglip_params
+from ..models.zoo import Food101FusionNet
+
+MODEL_TYPES = ("jlogits", "ensemble", "ogm_ge", "qmf", "jprobas",
+               "jprobas_jlogits")
+LEGACY_TYPES = ("jprobas", "jprobas_jlogits")
+
+
+def _refuse_legacy(what: str) -> None:
+    raise NotImplementedError(
+        f"food101 {what}: the legacy frozen ResNet50 + BERT pair is not "
+        "ported yet (ROADMAP.md queue A, item 15b)")
+
+
+class Food101DiskDataset:
+    """Per-sample ``.npy`` token ids and pixels, read at gather time."""
+
+    def __init__(self, data_dir: str, split_file: str):
+        self.data_dir = data_dir
+        self.items = []
+        with open(os.path.join(data_dir, split_file)) as f:
+            for line in f:
+                parts = line.strip().split()
+                if len(parts) >= 2:
+                    self.items.append((parts[0], int(parts[1])))
+        self.labels = np.asarray([l for _, l in self.items], np.int32)
+
+    def __len__(self):
+        return len(self.items)
+
+    def gather(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
+        toks, pixels, labels = [], [], []
+        for i in indices:
+            name, label = self.items[int(i)]
+            stem = os.path.join(self.data_dir, "tokens", os.path.splitext(
+                os.path.basename(name))[0])
+            toks.append(np.load(stem + "_input_ids.npy"))
+            px = np.load(stem + "_pixel_values.npy")
+            if px.ndim == 4:
+                px = px[0]
+            pixels.append(px.transpose(1, 2, 0))  # CHW -> HWC
+            labels.append(label)
+        return {
+            "x1": np.stack(toks).astype(np.int32).reshape(len(indices), -1),
+            "x2": np.stack(pixels).astype(np.float32),
+            "label": np.asarray(labels, np.int32),
+        }
+
+
+def get_data(args) -> DataBundle:
+    if getattr(args, "model_type", "qmf") in LEGACY_TYPES:
+        _refuse_legacy(f"model_type {args.model_type!r}")
+    data_dir = getattr(args, "data_path", "data/food101/")
+    if os.path.exists(os.path.join(data_dir, "my_train_food.txt")):
+        train, val, test = (Food101DiskDataset(data_dir, f"my_{s}_food.txt")
+                            for s in ("train", "dev", "test"))
+        synthetic = False
+    else:
+        print(f"[food101] real data not found under {data_dir!r}; "
+              "using synthetic twin")
+        train, val, test = make_synthetic_splits(
+            "food101", int(args.num_classes), int(getattr(args, "seed", 0)),
+            n_train=128, n_val=32, n_test=32)
+        synthetic = True
+    return DataBundle(train, val, test, train_sampler="sequential",
+                      synthetic=synthetic)
+
+
+def load_pretrained(args, state):
+    """The SigLIP towers from a local HF snapshot directory
+    (``siglip_weights``: ``model.safetensors`` or ``pytorch_model.bin``),
+    in place; a no-op when unset."""
+    for key in ("resnet50_weights", "bert_weights"):
+        if getattr(args, key, None):
+            _refuse_legacy(key)
+    ckpt = getattr(args, "siglip_weights", None)
+    if ckpt:
+        load_hf_siglip_params(ckpt, state.model.model)
+        print(f"[food101] loaded SigLIP weights from {ckpt}")
+    return state
+
+
+def get_model_spec(args, n_train: int) -> Tuple[ModelSpec, Dict]:
+    model_type = getattr(args, "model_type", "qmf")
+    if model_type in LEGACY_TYPES:
+        _refuse_legacy(f"model_type {model_type!r}")
+    if model_type not in MODEL_TYPES:
+        raise NotImplementedError(f"food101 model_type {model_type!r}")
+    module = Food101FusionNet(int(args.num_classes), resolve_dtype(args))
+    common = dict(module=module, sched_step_size=50, sched_gamma=0.5)
+    if model_type == "ogm_ge":
+        spec = ModelSpec(contract="ogm_ge",
+                         grad_mod_type=getattr(args, "grad_mod_type",
+                                               "OGM_GE"),
+                         ogm_alpha=float(getattr(args, "alpha", 0.1)),
+                         **common)
+    elif model_type == "qmf":
+        spec = ModelSpec(contract="qmf", n_train_samples=n_train, **common)
+    else:
+        spec = ModelSpec(contract=model_type, **common)
+    return spec, {}

@@ -1,8 +1,9 @@
 """Flax -> torch weight loading: the inverse of the JAX package's
 ``models/torch_port.py`` functions ``port_resnet_encoder``, ``port_lenet``,
 ``port_gru_cell``, ``port_lstm_classifier``, ``port_resnet18_slim``,
-``port_vgg11_slim`` and ``port_bottleneck_encoder``, and the map of the
-FakeNews ``TextTransformer``'s flax tree.
+``port_vgg11_slim`` and ``port_bottleneck_encoder``, of ``models/siglip.py``'s
+``port_siglip_state_dict``, and the map of the FakeNews
+``TextTransformer``'s flax tree.
 
 The flax trees come in as nested dicts of numpy arrays (``params`` and
 ``batch_stats``), so this module needs nothing of JAX.  Layouts: conv HWIO
@@ -12,7 +13,9 @@ a recurrent cell's packed parameter is its gates' leaves, each in the
 Dense layout, stacked in torch's gate order (``models/rnn.py``); VGG11Slim's
 classifier rows are permuted from the NHWC flatten (7, 7, C) to torch's
 C-major one; attention's ``DenseGeneral`` kernels (D, H, d) and (H, d, D)
-flatten their head axes.
+flatten their head axes, and the SigLIP MAP head's query, key and value
+stack into torch ``nn.MultiheadAttention``'s packed ``in_proj``; a
+SigLIP position table (1, L, D) drops its leading axis.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from .common import BatchNormBase, TorchDense
 from .pretrained import BiasConv, VGG11Slim
 from .resnet import BottleneckResNetEncoder, Conv, ResNetEncoder
 from .rnn import _Cell
+from .siglip import SigLIPModel
 from .zoo import TextTransformer
 
 # torch state_dict key -> (flax collection, path in that tree, layout kind);
@@ -114,6 +118,67 @@ def _text_keys(enc: TextTransformer, prefix: str,
     return keys
 
 
+def _siglip_keys(model: SigLIPModel, prefix: str,
+                 path: Tuple[str, ...]) -> KeyMap:
+    """HF ``SiglipModel`` names -> the flax ``SigLIPModel`` tree, the
+    inverse of the JAX ``port_siglip_state_dict``."""
+    keys: KeyMap = {}
+
+    def norm(tkey, fpath):
+        keys[tkey + ".weight"] = ("params", fpath + ("scale",), "vector")
+        keys[tkey + ".bias"] = ("params", fpath + ("bias",), "vector")
+
+    def dense(tkey, fpath):
+        keys[tkey + ".weight"] = ("params", fpath + ("kernel",), "dense")
+        keys[tkey + ".bias"] = ("params", fpath + ("bias",), "vector")
+
+    for tower in ("text_model", "vision_model"):
+        t, p = f"{prefix}{tower}.", path + (tower,)
+        for i in range(len(getattr(model, tower).encoder.layers)):
+            tb, pb = f"{t}encoder.layers.{i}.", p + (f"layers_{i}",)
+            norm(tb + "layer_norm1", pb + ("layer_norm1",))
+            norm(tb + "layer_norm2", pb + ("layer_norm2",))
+            for hf, fl in zip(("q_proj", "k_proj", "v_proj", "out_proj"),
+                              ("query", "key", "value", "out")):
+                pa = pb + ("self_attn", fl)
+                out = fl == "out"
+                keys[f"{tb}self_attn.{hf}.weight"] = (
+                    "params", pa + ("kernel",),
+                    "heads_out" if out else "heads_in")
+                keys[f"{tb}self_attn.{hf}.bias"] = (
+                    "params", pa + ("bias",), "vector" if out else "flat")
+            dense(tb + "mlp.fc1", pb + ("mlp_fc1",))
+            dense(tb + "mlp.fc2", pb + ("mlp_fc2",))
+        keys[t + "embeddings.position_embedding.weight"] = (
+            "params", p + ("position_embedding",), "table")
+    t, p = f"{prefix}text_model.", path + ("text_model",)
+    keys[t + "embeddings.token_embedding.weight"] = (
+        "params", p + ("token_embedding", "embedding"), "vector")
+    norm(t + "final_layer_norm", p + ("final_layer_norm",))
+    dense(t + "head", p + ("head",))
+    t, p = f"{prefix}vision_model.", path + ("vision_model",)
+    keys[t + "embeddings.patch_embedding.weight"] = (
+        "params", p + ("patch_embedding", "kernel"), "conv")
+    keys[t + "embeddings.patch_embedding.bias"] = (
+        "params", p + ("patch_embedding", "bias"), "vector")
+    norm(t + "post_layernorm", p + ("post_layernorm",))
+    t, p = t + "head.", p + ("head",)
+    keys[t + "probe"] = ("params", p + ("probe",), "vector")
+    qkv = tuple(p + ("attention", fl) for fl in ("query", "key", "value"))
+    keys[t + "attention.in_proj_weight"] = (
+        "params", tuple(q + ("kernel",) for q in qkv), "packed_heads_in")
+    keys[t + "attention.in_proj_bias"] = (
+        "params", tuple(q + ("bias",) for q in qkv), "packed_flat")
+    keys[t + "attention.out_proj.weight"] = (
+        "params", p + ("attention", "out", "kernel"), "heads_out")
+    keys[t + "attention.out_proj.bias"] = (
+        "params", p + ("attention", "out", "bias"), "vector")
+    norm(t + "layernorm", p + ("layernorm",))
+    dense(t + "mlp.fc1", p + ("mlp_fc1",))
+    dense(t + "mlp.fc2", p + ("mlp_fc2",))
+    return keys
+
+
 def _leaf_keys(module: nn.Module, tkey: str, path: Tuple[str, ...]
                ) -> KeyMap:
     """The entries of one layer of a tower, ``tkey`` its torch name and
@@ -152,6 +217,8 @@ def jax_key_map(model: nn.Module) -> KeyMap:
             keys.update(_bottleneck_keys(module, prefix, path))
         elif isinstance(module, TextTransformer):
             keys.update(_text_keys(module, prefix, path))
+        elif isinstance(module, SigLIPModel):
+            keys.update(_siglip_keys(module, prefix, path))
         elif hasattr(module, "flax_names"):
             for child, scope in module.flax_names.items():
                 keys.update(_leaf_keys(module.get_submodule(child),
@@ -180,6 +247,12 @@ def to_torch_layout(kind: str, leaf, dtype=np.float32) -> np.ndarray:
                                for a in leaf])
     if kind == "gate_biases":
         return np.concatenate([np.asarray(a, dtype) for a in leaf])
+    if kind == "packed_heads_in":
+        return np.concatenate([to_torch_layout("heads_in", a, dtype)
+                               for a in leaf])
+    if kind == "packed_flat":
+        return np.concatenate([to_torch_layout("flat", a, dtype)
+                               for a in leaf])
     a = np.asarray(leaf, dtype)
     if kind == "conv":
         return a.transpose(3, 2, 0, 1)   # HWIO -> OIHW
@@ -191,6 +264,8 @@ def to_torch_layout(kind: str, leaf, dtype=np.float32) -> np.ndarray:
         return a.reshape(-1, a.shape[-1]).T  # (H, d, D) -> (D, H * d)
     if kind == "flat":
         return a.reshape(-1)                 # (H, d) -> (H * d,)
+    if kind == "table":
+        return a[0]                          # (1, L, D) -> (L, D)
     if kind == "vgg_classifier":
         # NHWC row i * 7 * C + j * C + c -> torch column c * 49 + i * 7 + j
         c = a.shape[0] // 49

@@ -1,7 +1,8 @@
 """torchvision-style encoders of Enrico, ResNet18Slim and VGG11Slim, and
 the local checkpoint reader (port of
 ``multimodal_clinical_tpu/models/pretrained.py`` and of
-``benchmarks/food101.py::_torch_state_dict``).
+``benchmarks/food101.py::_torch_state_dict``, with a reader of
+``.safetensors`` files of its own).
 
 Reference: enrico/joint_model.py:12-52 (ResNet18Slim: torchvision resnet18
 minus its fc, an average pool and a Linear(512, hiddim) classifier,
@@ -24,9 +25,11 @@ update in train mode.
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -139,10 +142,43 @@ def torch_state_dict(path: str) -> Dict:
             raise FileNotFoundError(
                 f"{path}: no model.safetensors / pytorch_model.bin")
     if path.endswith(".safetensors"):
-        from safetensors.numpy import load_file
-
-        return load_file(path)
+        return read_safetensors(path)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and isinstance(sd.get("state_dict"), dict):
         sd = sd["state_dict"]  # lightning-style wrapper
     return sd
+
+
+# safetensors dtype names -> little-endian numpy dtypes; BF16 is read as
+# its 16 bits and widened to fp32
+_SAFETENSORS_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2",
+                       "BF16": "<u2", "I64": "<i8", "I32": "<i4",
+                       "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?"}
+
+
+def read_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """A ``.safetensors`` file -> {name: numpy array}: an 8-byte
+    little-endian header length, a JSON header of {name: {"dtype",
+    "shape", "data_offsets"}} (and an optional ``__metadata__``), then the
+    raw little-endian tensors, offsets counted from the header's end.
+    BF16 tensors come back as fp32 (numpy has no bf16); every other dtype
+    as stored."""
+    with open(path, "rb") as f:
+        (size,) = np.frombuffer(f.read(8), "<u8")
+        header = json.loads(f.read(int(size)))
+        data = np.fromfile(f, np.uint8)
+    header.pop("__metadata__", None)
+    out = {}
+    for name, info in header.items():
+        kind = info["dtype"]
+        if kind not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: {name} has unsupported dtype {kind}")
+        start, end = info["data_offsets"]
+        arr = data[start:end].view(_SAFETENSORS_DTYPES[kind]).reshape(
+            info["shape"])
+        if kind == "BF16":
+            arr = (arr.astype(np.uint32) << 16).view(np.float32)
+        elif not arr.flags.aligned:
+            arr = arr.copy()
+        out[name] = arr
+    return out

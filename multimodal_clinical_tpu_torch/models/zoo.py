@@ -1,8 +1,8 @@
 """Fusion networks (port of ``multimodal_clinical_tpu/models/zoo.py``):
 ``CremadFusionNet``, ``AVMnistFusionNet``, ``MimicFusionNet``,
 ``MustardFusionNet``, ``EnricoFusionNet``, ``EnricoVGGFusionNet``,
-``FakeNewsFusionNet`` (with its ``TextTransformer``) and
-``FakeNewsEmbedFusionNet``.  ``forward(*modality_inputs)`` returns ``{"logits":
+``FakeNewsFusionNet`` (with its ``TextTransformer``),
+``FakeNewsEmbedFusionNet`` and ``Food101FusionNet``.  ``forward(*modality_inputs)`` returns ``{"logits":
 [per-modality (B, C) logits]}``; fusion and losses live in
 ``engine/contracts.py``.  The towers are ``x1_model``, ``x2_model``, ...
 (the reference's attribute contract, which OGM-GE and the metrics
@@ -21,7 +21,7 @@ from .common import (
     Dropout, TorchDense, global_avg_pool, lecun_normal_,
 )
 from .lenet import LeNet
-from .mlp import MimicMLP
+from .mlp import HeadMLP, MimicMLP
 from .pretrained import ResNet18Slim, VGG11Slim
 from .resnet import BottleneckResNetEncoder, ResNetEncoder
 from .rnn import GRUNet, LstmClassifier
@@ -183,40 +183,70 @@ class LayerNorm(nn.Module):
         return y + self.bias.to(dtype)
 
 
-class SelfAttention(nn.Module):
-    """flax ``nn.MultiHeadDotProductAttention`` (0.12) as self-attention
-    under a key-padding mask, written out as its products and softmax:
-    the query scaled by 1 / sqrt(head dim) before q.k, masked logits set
-    to the dtype's lowest finite value (so an all-padding row attends
-    uniformly, where -inf masking gives NaN), the softmax in ``dtype``.
-    ``query``/``key``/``value``/``out`` hold flax's (D, H, d) and
-    (H, d, D) kernels in the torch (out, in) layout."""
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """flax's ``dot_product_attention`` (0.12) on (B, L, H, d) heads,
+    written out as its products and softmax: the query scaled by
+    1 / sqrt(d) before q.k, masked logits set to the dtype's lowest finite
+    value (so a row with nothing to attend to attends uniformly, where
+    -inf masking gives NaN), the softmax in the inputs' dtype.  ``mask``
+    broadcasts to (B, H, Lq, Lk), True where a key is attended."""
+    depth = q.shape[-1]
+    # jnp.sqrt(depth) in fp32, cast to the compute dtype
+    q = q / torch.tensor(math.sqrt(depth), dtype=torch.float32).to(q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+    weights = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` (0.12): queries from
+    ``inputs_q``, keys and values from ``inputs_kv`` (``inputs_q`` where
+    None), ``dot_product_attention`` over ``num_heads`` heads, then the
+    output projection.  ``names`` are the four projections' module names
+    (query, key, value, out), each a ``Dense`` holding flax's (D, H, d) or
+    (H, d, D) kernel in the torch (out, in) layout: flax's own by default,
+    HF's ``q_proj``/``k_proj``/``v_proj``/``out_proj`` for SigLIP; a
+    subclass that packs the first three (``siglip.PackedAttention``)
+    names them None and overrides ``project``."""
 
     def __init__(self, dim: int, num_heads: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 names: Sequence[str] = ("query", "key", "value", "out")):
         super().__init__()
         self.dtype = dtype
         self.num_heads = num_heads
-        self.query = Dense(dim, dim, dtype)
-        self.key = Dense(dim, dim, dtype)
-        self.value = Dense(dim, dim, dtype)
-        self.out = Dense(dim, dim, dtype)
+        self.names = tuple(names)
+        for name in self.names:
+            if name is not None:
+                self.add_module(name, Dense(dim, dim, dtype))
+
+    def project(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """The query (0), key (1) or value (2) projection of x."""
+        return getattr(self, self.names[i])(x)
+
+    def forward(self, inputs_q: torch.Tensor,
+                inputs_kv: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, Lq, D), (B, Lk, D) -> (B, Lq, D)."""
+        inputs_kv = inputs_q if inputs_kv is None else inputs_kv
+        q, k, v = (self.project(i, x).unflatten(-1, (self.num_heads, -1))
+                   for i, x in enumerate((inputs_q, inputs_kv, inputs_kv)))
+        out = dot_product_attention(q, k, v, mask)
+        return getattr(self, self.names[3])(out.flatten(-2))
+
+
+class SelfAttention(MultiHeadDotProductAttention):
+    """Self-attention under a key-padding mask, FakeNews's
+    ``TextTransformer`` layer."""
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """x (B, L, D); mask (B, L), True where a token is real."""
-        heads = self.num_heads
-        q, k, v = (proj(x).unflatten(-1, (heads, -1))
-                   for proj in (self.query, self.key, self.value))
-        depth = q.shape[-1]
-        # jnp.sqrt(depth) in fp32, cast to the compute dtype
-        q = q / torch.tensor(math.sqrt(depth), dtype=torch.float32).to(
-            q.dtype)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        logits = logits.masked_fill(~mask[:, None, None, :],
-                                    torch.finfo(logits.dtype).min)
-        weights = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
-        return self.out(out.flatten(-2))
+        return super().forward(x, mask=mask[:, None, None, :])
 
 
 class TextTransformer(nn.Module):
@@ -357,3 +387,28 @@ class FakeNewsEmbedFusionNet(nn.Module):
             parts.append(F.relu(self.dialogue_module(x3)))
         fused = self.dropout(F.relu(self.fusion(torch.cat(parts, dim=-1))))
         return {"logits": [self.fc2(F.relu(self.fc1(fused)))]}
+
+
+class Food101FusionNet(nn.Module):
+    """The SigLIP dual tower and two ``HeadMLP`` heads for Food101
+    (food101/joint_model.py:26-66): ``model`` is the whole SigLIP (fully
+    trainable, as the reference's ``AutoModel``), ``x1_model`` the text
+    head and ``x2_model`` the image head, so OGM-GE finds no 4-D leaf under
+    the heads and modulates nothing (food101/joint_model_ogm_ge.py).
+
+    x1: (B, L) int token ids; x2: (B, H, W, 3) pixel values."""
+
+    def __init__(self, num_classes: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        # siglip.py builds on this module's attention and layer norm; the
+        # name is looked up here, as the JAX net looks it up in __call__
+        from . import siglip
+
+        self.model = siglip.SigLIPModel(dtype=dtype)
+        width = self.model.text_model.head.weight.shape[0]
+        self.x1_model = HeadMLP(num_classes, width, dtype=dtype)
+        self.x2_model = HeadMLP(num_classes, width, dtype=dtype)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor):
+        text, image = self.model(x1, x2)
+        return {"logits": [self.x1_model(text), self.x2_model(image)]}

@@ -6,7 +6,9 @@ values and gradients agree to a few ulps: each is held to 1e-6 relative,
 with an absolute floor of 1e-6 of the tensor's largest entry for entries
 near zero.  The OGM coefficient ``1 - tanh(.)`` is the exception: tanh
 near 1 rounds to ulps of 1.0, so the coefficient is held to two of them
-(2.4e-7) absolute.  The History tables are written, not summed: they must be
+(2.4e-7) absolute, and a modulated gradient is held to 1e-6 relative
+given each side's own coefficient (two ulps of 1.0 are 8.9e-7 of a
+coefficient of 0.27).  The History tables are written, not summed: they must be
 equal bit for bit.
 
 The JAX ``_modulate_leaf`` draws its noise with ``jax.random.normal``;
@@ -172,9 +174,26 @@ def test_modulate_gradients_matches_jax(nets, monkeypatch, modulation, bias):
         model, _t(x1), _t(x2), _t(label),
         lambda name, g: port_noise[name], alpha=0.8,
         modulation=modulation, valid=_t(valid))
+    # each side's coefficient, held to COEFF_ATOL; the gradients are then
+    # held to RTOL given each side's own: JAX's modulated leaves moved to
+    # the port's coefficient in float64 (the noise term does not depend on
+    # it), so a coefficient an ulp or two apart is not amplified into the
+    # gradient's relative bound
+    coeffs = [(float(c), float(jc)) for c, jc in zip(
+        ogm_ge.ogm_coefficients(_t(x1), _t(x2), _t(label), 0.8, _t(valid)),
+        jax_ogm.ogm_coefficients(jnp.asarray(x1), jnp.asarray(x2),
+                                 jnp.asarray(label), 0.8,
+                                 jnp.asarray(valid)))]
+    for c, jc in coeffs:
+        assert abs(c - jc) <= COEFF_ATOL, coeffs
     for name, (_, path, kind) in keys.items():
         got = named[name].grad
         ref = to_torch_layout(kind, get_leaf(want, path))
+        if got.ndim == 4 and modulation != "noise":
+            c, jc = coeffs[jax_ogm.DEFAULT_ENCODER_KEYS.index(path[0])]
+            given = to_torch_layout(kind, get_leaf(grads, path))
+            ref = ref.astype(np.float64) + given.astype(np.float64) * (
+                c - jc)
         _close(got, ref, name)
         if len(path) and path[-1] != "kernel" or got.ndim != 4:
             # not modulated: bit-equal to the gradient given

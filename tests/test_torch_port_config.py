@@ -18,11 +18,12 @@ import pytest
 import torch
 import yaml
 
+from multimodal_clinical_tpu import benchmarks as jax_benchmarks
 from multimodal_clinical_tpu.benchmarks import vggsound as jax_vggsound
 from multimodal_clinical_tpu.config import setup_configs as jax_setup_configs
 
 import multimodal_clinical_tpu_torch.__main__ as port_main
-from multimodal_clinical_tpu_torch import config
+from multimodal_clinical_tpu_torch import benchmarks, config
 from multimodal_clinical_tpu_torch.benchmarks import (
     available, get_benchmark, vggsound,
 )
@@ -131,16 +132,15 @@ def test_registry_serves_cremad_and_ave(name):
 @pytest.mark.parametrize("name,item", [
     ("enrico", 14), ("food101", 15), ("fakenews", 16)])
 def test_registry_raises_for_the_other_benchmarks(name, item):
-    """Food101 (queue A item 15) still raises, naming its item; Enrico
-    (item 14) and FakeNews (item 16) are served since slice 10."""
-    if name == "food101":
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            get_benchmark(name)
-        return
+    """The benchmarks of queue A items 14-16, which raised until they were
+    ported: Enrico, FakeNews and Food101 are all served, and nothing is
+    left unported."""
     module = get_benchmark(name)
     assert module.__name__.endswith(f"benchmarks.{name}")
     assert callable(module.load_pretrained)
     assert name in available()
+    assert not benchmarks._NOT_PORTED
+    assert sorted(available()) == sorted(jax_benchmarks._REGISTRY)
 
 
 def test_registry_raises_for_an_unknown_name():

@@ -16,6 +16,12 @@ The first train batch is full, the second has a padded tail (the loader
 repeats the last real row, ``idx`` included), which the QMF scatter must
 drop; the eval batch is the second.
 
+Food101 runs its SigLIP towers at ``SIGLIP_TINY`` on both sides (the
+geometry of ``test_siglip_parity.py``; the JAX net looks ``SigLIPModel``
+up in ``models/siglip.py`` when called, the port's when built, so both
+names are patched there) over 16 token ids and 32 x 32 pixels, with its
+heads' four dropouts injected.
+
 Enrico and FakeNews (``fakenews`` for the token variants,
 ``fakenews_embed`` for the embed ones) run narrowed on both sides
 (``narrow``: ResNets at width 16 with one block a stage, the VGG stack at
@@ -52,6 +58,7 @@ from multimodal_clinical_tpu.engine.steps import (
 )
 from multimodal_clinical_tpu.data import synthetic as jax_syn
 from multimodal_clinical_tpu.models import pretrained as jax_pretrained
+from multimodal_clinical_tpu.models import siglip as jax_siglip
 from multimodal_clinical_tpu.models import zoo as jax_zoo
 from multimodal_clinical_tpu.models.resnet import (
     BottleneckResNetEncoder as JaxBottleneckEncoder,
@@ -64,7 +71,9 @@ from multimodal_clinical_tpu_torch.engine.state import create_train_state
 from multimodal_clinical_tpu_torch.engine.steps import (
     make_eval_step, make_train_step,
 )
+from multimodal_clinical_tpu_torch.algos.ogm_ge import modulated_parameters
 from multimodal_clinical_tpu_torch.models import pretrained as port_pretrained
+from multimodal_clinical_tpu_torch.models import siglip as port_siglip
 from multimodal_clinical_tpu_torch.models import zoo as port_zoo
 from multimodal_clinical_tpu_torch.models.common import Dropout
 from multimodal_clinical_tpu_torch.models.jax_weights import (
@@ -100,11 +109,15 @@ BENCHMARKS = {
     "fakenews": (6, [("ids", 12), ("unit", (64, 64, 3)), ("ids", 12)], 1e-2,
                  0),
     "fakenews_embed": (6, [(768,), (32, 32, 3), (768,)], 1e-2, 0),
+    "food101": (101, [("ids", 16), (32, 32, 3)], 2e-2, 0),
 }
 MODULES = {"fakenews_embed": "fakenews"}
 # the narrowed VGG11Slim stack (an eighth of torchvision's widths)
 NARROW_VGG = (8, "M", 16, "M", 32, 32, "M", 64, 64, "M", 64, 64, "M")
 TEXT_VOCAB = 200
+# the narrowed SigLIP (tests/test_siglip_parity.py's _TINY)
+SIGLIP_TINY = dict(width=64, layers=2, heads=2, mlp_dim=128, patch=16,
+                   image_size=32, text_len=16, vocab=1000)
 
 
 # the narrowed ResNets' stem width
@@ -151,6 +164,11 @@ def narrow(bench, mp):
                    functools.partial(port_zoo.FakeNewsFusionNet, width=WIDTH))
         shapes = {"fakenews": [(12,), (32, 32, 3)],
                   "fakenews_dialogue": [(12,), (32, 32, 3), (12,)]}
+    elif bench == "food101":
+        for mod in (jax_siglip, port_siglip):
+            mp.setattr(mod, "SigLIPModel", functools.partial(
+                mod.SigLIPModel, **SIGLIP_TINY))
+        shapes = {"food101": [(16,), (32, 32, 3)]}
     elif bench == "fakenews_embed":
         for mod, enc in ((jax_zoo, JaxBottleneckEncoder),
                          (port_zoo, BottleneckResNetEncoder)):
@@ -311,7 +329,8 @@ def _run_pair(bench: str, model_type: str, **arg_overrides):
             state, _to_port(data[-1])).items()}
         jout = {k: np.asarray(v) for k, v in jeval(
             jstate, _to_jax(data[-1])).items()}
-    has_conv = any(p.ndim == 4 for p in state.model.parameters())
+    # the port's OGM walk: the 4-D leaves under the modality encoders
+    has_conv = any(True for _ in modulated_parameters(state.model))
     return dict(spec=spec, jspec=jspec, opt=opt, jopt=jopt, state=state,
                 jstate=jstate, init=init, metrics=metrics,
                 jmetrics=jmetrics, grads=grads, jax_mu=jax_mu, out=out,
@@ -389,9 +408,10 @@ def row_kind(row):
     return "test_epoch" if row.get("epoch") == -1 else "epoch"
 
 
-def cli_pair(bench, model_type, root):
+def cli_pair(bench, model_type, root, *extra):
     """The JAX CLI and the port's (on the CPU), in process, on the
-    benchmark's twin: {"jax"|"port": (summary, metrics rows)}."""
+    benchmark's twin, ``extra`` arguments given to both: {"jax"|"port":
+    (summary, metrics rows)}."""
     import multimodal_clinical_tpu.__main__ as jax_main
     from multimodal_clinical_tpu.engine import checkpoint as jax_checkpoint
     import multimodal_clinical_tpu_torch.__main__ as port_main
@@ -413,7 +433,7 @@ def cli_pair(bench, model_type, root):
         for side, main, kwargs in (("jax", jax_main, {}),
                                    ("port", port_main, {"device": "cpu"})):
             summary = main.run_training(
-                cli_argv(bench, root / side, model_type), **kwargs)
+                cli_argv(bench, root / side, model_type, *extra), **kwargs)
             out[side] = (summary, metrics_rows(root / side))
     return out
 

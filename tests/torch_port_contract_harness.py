@@ -477,7 +477,9 @@ def check_state(run, rounding_grads=(), float64_only=()):
     ending in one of ``rounding_grads`` have a gradient that is zero in
     exact arithmetic: both sides' are held below ROUNDING_GRAD, and Adam
     moves each entry by at most twice the learning rate a step on either
-    side, whatever direction the rounding gives it.  The keys starting
+    side, whatever direction the rounding gives it; under SGD both sides'
+    momentum stays below ROUNDING_GRAD a step and the leaf moves by at
+    most the learning rate times that a step.  The keys starting
     with one of ``float64_only`` have an fp32 gradient too ill-conditioned
     to compare (a caller holds them in float64): here only their optimizer
     state's key set is checked."""
@@ -515,6 +517,22 @@ def check_state(run, rounding_grads=(), float64_only=()):
         if key.startswith(tuple(float64_only)):
             continue
         held = slice(None)
+        if key.endswith(tuple(rounding_grads)) and "exp_avg" not in opt_trees:
+            # under SGD a rounding gradient stays rounding: each side's
+            # momentum sums at most ``steps`` of them, and each step moves
+            # the leaf by the learning rate times its momentum
+            steps = len(run["grads"])
+            got_g = np.stack([step[key] for step in run["grads"]])
+            assert np.abs(got_g).max() <= ROUNDING_GRAD, key
+            bound = ROUNDING_GRAD * steps
+            moments = [kept[name].numpy() for name in opt_trees] + [
+                to_torch_layout(kind, get_leaf(tree, path))
+                for tree in opt_trees.values()]
+            assert all(np.abs(m).max() <= bound for m in moments), key
+            bound *= state.optimizer.param_groups[0]["lr"] * steps
+            assert np.abs(sd[key].numpy() - init).max() <= bound, key
+            assert np.abs(want - init).max() <= bound, key
+            continue
         if "exp_avg" in opt_trees:
             got_g = np.stack([step[key] for step in run["grads"]])
             want_g, slack = map(np.stack, zip(*_jax_grads(
