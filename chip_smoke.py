@@ -50,7 +50,11 @@ Phases, each of which raises on failure:
    width-64 ResNet18 towers in bf16) on the synthetic twin, two epochs;
    its printed summary, ``metrics.jsonl`` rows, committed checkpoint
    directory and ``meta.json`` are checked, then ``--resume`` with one more
-   epoch must train exactly one more;
+   epoch, in process through the same entry point
+   (``__main__.run_training``), must train exactly one more; a process
+   that only imports the CLI and makes its CUDA context is timed first,
+   and each subprocess logs when its first line, each epoch line and its
+   summary came;
 12. loop: ``engine.run.run_benchmark`` in process on a waveform dataset
    (896 train, 224 val and 224 test rows of 80 000 samples and four uint8
    frames) through the ``Loader`` with 4 gather threads, two epochs; the
@@ -77,11 +81,11 @@ Phases, each of which raises on failure:
    plain version exactly at every shape recorded there; then
    VGGSound's jlogits and ensemble at batch 224 from waveforms, the
    log-STFT launches asserted;
-15. contracts CLI: ``python3 -m multimodal_clinical_tpu_torch --dir cremad
-   --set model_type=qmf`` at full width on the synthetic twin, two epochs,
-   then ``--resume`` for a third in process through the same entry point
-   (``__main__.run_training``), whose restored History tables must equal
-   the saved ones; then ``--dir ave`` for one epoch;
+15. contracts CLI: ``--dir cremad --set model_type=qmf`` at full width on
+   the synthetic twin, two epochs, then ``--resume`` for a third, whose
+   restored History tables must equal the saved ones; then ``--dir ave``
+   for one epoch; all in process through ``__main__.run_training``, the
+   entry point of ``python3 -m`` (phase 11 runs it as a subprocess);
 16. the disk feed: corpora in the reference's layouts at the published
    per-sample geometry, clip counts cut (``benchmarks/disk_fixture.py``:
    VGGSound 448 + 224 clips of a 10 s wav and 10 JPEGs of 640 x 360;
@@ -155,20 +159,49 @@ Phases, each of which raises on failure:
    ogm_ge every gradient bit-unchanged by the modulation), timed steps, an
    eval step and one profiled step; (e) a seeded siglip-base
    ``model.safetensors`` through ``load_pretrained`` and the towers'
-   fp32 forward on the card against the CPU; (c) ``python3 -m
-   multimodal_clinical_tpu_torch --dir food101`` (qmf) on the twin for two
-   epochs, ``--resume`` for a third in process (the History, momentum and
-   EMA restored as saved), the other three types for one epoch each; (d)
+   fp32 forward on the card against the CPU; (c) the CLI's ``--dir
+   food101`` (qmf) in process on the twin for two epochs, ``--resume`` for
+   a third (the History, momentum and EMA restored as saved), the other
+   three types for one epoch each; (d)
    ``benchmarks/disk_fixture.py::build_food101_tree`` files (256 + 32 +
    32 samples at the published geometry) through ``get_data``, the first
    batch on the card against its gather, one CLI epoch.  No TPU kernel
-   lies on this path: each must record 0 launches.
+   lies on this path: each must record 0 launches;
+20. Food101's legacy pair (a frozen torchvision ResNet50 and a frozen
+   bert-base with trainable heads): (a) the narrow net (a two-stage
+   ResNet, two 32-wide BERT layers, 32 x 32 images, 16 ids) under jprobas
+   and jprobas_jlogits on the card against the CPU, two train steps from
+   the same weights and dropout masks (BERT's seven a step, the attention
+   weights' included), TF32 off: losses, BN buffers and EMA in fp32,
+   the heads' updates and momentum in float64, the frozen leaves
+   bit-unchanged with no optimizer state; then at a fresh process's
+   settings, the launch counts set to 0 first and read last: (b) each type
+   at the published geometry (resnet50 and bert-base in bf16, batch 128
+   of 224 x 224 x 3 images and 512 ids, 101 classes), two steps (the
+   first with a padded tail) after which every frozen parameter is
+   bit-unchanged and every BN running statistic has moved, timed steps,
+   an eval step and one profiled step; (c) a seeded torchvision-named
+   resnet50 ``.pth`` and an HF-named bert-base ``model.safetensors``
+   through ``load_pretrained``, and the towers' fp32 forward on the card
+   against the CPU; (d) ``benchmarks/disk_fixture.py::
+   build_food101_legacy_tree`` files (256 + 64 samples, JPEGs of 512 x
+   384) through ``get_data``, the first batch on the card against its
+   gather, ``python3 -m multimodal_clinical_tpu_torch --dir food101 --set
+   model_type=jprobas_jlogits`` on them for two epochs, ``--resume`` for a
+   third in process, jprobas for one epoch.  No TPU kernel lies on this
+   path: each must record 0 launches.
+
+The CLI runs as a ``python3 -m`` subprocess once per family (phase 11 for
+VGGSound, Crema-D and AVE, 17c for the small nets, 20d for Food101), and
+elsewhere in process through ``__main__.run_training``, the function that
+``python3 -m`` calls.
 
 Each path's launch counts are set to 0 just before it is driven and read
 just after; launches made to compare or time a kernel do not count.  The
 kernels' line gives each kernel's launches on the main path as
 ``launches`` and on the later paths under ``launches_by_path`` (0 on
-AV-MNIST's, MIMIC's, MUsTARD's, Enrico's, FakeNews's and Food101's); the
+AV-MNIST's, MIMIC's, MUsTARD's, Enrico's, FakeNews's, Food101's and the
+Food101 legacy pair's); the
 max-pool's entries list the shapes checked on the phase 14 path under
 ``checked_shapes_by_path``.
 
@@ -182,6 +215,7 @@ from __future__ import annotations
 import ast
 import collections
 import contextlib
+import io
 import json
 import math
 import os
@@ -189,6 +223,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -1014,21 +1049,80 @@ WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 RUN_NAME = "vggsound_cls309_jprobas_seeds"  # configs/vggsound.yaml group
 
 
-def _cli(args, timeout: int = 600, bench: str = "vggsound") -> str:
+def _cli(args, timeout: int = 600, bench: str = "vggsound",
+         device=None) -> str:
     """``python3 -m multimodal_clinical_tpu_torch --dir <bench>`` with
-    ``args`` from the repository root; raises unless it exits 0.  Returns
-    its standard output."""
+    ``args`` from the repository root, unbuffered; raises unless it exits
+    0.  Logs where its seconds went: to its first line of output (the
+    interpreter, the imports, the CUDA context, the config and the data),
+    to each ``[epoch`` line, to its summary, and from the summary to its
+    exit.  With a ``device``, the same entry point in process instead
+    (``__main__.run_training``, what ``python3 -m`` calls), at the settings
+    a fresh process starts with: no interpreter, imports or CUDA context to
+    pay for.  Returns its standard output."""
+    t = time.perf_counter()
+    if device is not None:
+        from multimodal_clinical_tpu_torch import __main__ as cli
+
+        out = io.StringIO()
+        with _torch_set(*TORCH_DEFAULTS), contextlib.redirect_stdout(out):
+            cli.run_training(["--dir", bench, *args], device=device)
+        out = out.getvalue()
+        tail = "\n".join(out.strip().splitlines()[-6:])
+        log(f"[cli] --dir {bench} {' '.join(args)} in process: "
+            f"{time.perf_counter() - t:.1f} s\n{tail}")
+        return out
     cmd = [sys.executable, "-m", "multimodal_clinical_tpu_torch",
            "--dir", bench, *args]
-    t = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=timeout, cwd=Path(__file__).resolve().parent)
-    tail = "\n".join(proc.stdout.strip().splitlines()[-6:])
-    log(f"[cli] {' '.join(cmd[1:])}: exit {proc.returncode} in "
-        f"{time.perf_counter() - t:.1f} s\n{tail}")
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent,
+        env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    err = []
+    drain = threading.Thread(target=lambda: err.append(proc.stderr.read()),
+                             daemon=True)
+    drain.start()
+    lines, marks = [], []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("[epoch"):
+                marks.append((line[1:line.index("]")], time.perf_counter() - t))
+            elif line.startswith("{"):
+                marks.append(("summary", time.perf_counter() - t))
+            elif len(lines) == 1:
+                marks.append(("first line", time.perf_counter() - t))
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    drain.join()
+    wall = time.perf_counter() - t
+    out = "".join(lines)
+    tail = "\n".join(out.strip().splitlines()[-6:])
+    log(f"[cli] {' '.join(cmd[1:])}: exit {proc.returncode} in {wall:.1f} s "
+        f"(seconds since start: " + ", ".join(
+            f"{name} {at:.1f}" for name, at in marks) + f", exit {wall:.1f})"
+        f"\n{tail}")
     if proc.returncode != 0:
-        raise AssertionError(f"the CLI failed:\n{proc.stderr[-4000:]}")
-    return proc.stdout
+        raise AssertionError(f"the CLI failed:\n{''.join(err)[-4000:]}")
+    return out
+
+
+def _process_floor() -> float:
+    """The wall seconds of a process that only starts the interpreter,
+    imports the port's CLI and makes its CUDA context: what every CLI
+    subprocess pays before its own work."""
+    t = time.perf_counter()
+    subprocess.run([sys.executable, "-c",
+                    "import torch, multimodal_clinical_tpu_torch.__main__; "
+                    "torch.zeros(1, device='cuda'); torch.cuda.synchronize()"],
+                   check=True, timeout=300,
+                   cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t
+    log(f"[cli] a process that imports the CLI and makes its CUDA context: "
+        f"{wall:.1f} s")
+    return wall
 
 
 def _epoch_rows(run_dir: Path):
@@ -1037,12 +1131,14 @@ def _epoch_rows(run_dir: Path):
     return [r for r in rows if "epoch" in r]
 
 
-def phase_cli():
-    """The port's CLI at the config's full geometry on the synthetic twin,
-    then ``--resume`` with one more epoch."""
+def phase_cli(device):
+    """The port's CLI at the config's full geometry on the synthetic twin
+    as a ``python3 -m`` subprocess, then ``--resume`` with one more epoch
+    in process."""
     work = WORK_DIR / "cli"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    _process_floor()
     try:
         base = ["--set", f"ckpt_dir={work}", "--set", f"data_path={work}/none"]
         out = _cli(base + ["--set", "num_epochs=2"])
@@ -1067,7 +1163,8 @@ def phase_cli():
         meta = json.loads((ckpt / "meta.json").read_text())
         if meta["epochs_done"] != 2 or meta["meta_step"] != 2:
             raise AssertionError(f"meta.json after two epochs: {meta}")
-        out = _cli(base + ["--set", "num_epochs=3", "--resume"])
+        out = _cli(base + ["--set", "num_epochs=3", "--resume"],
+                   device=device)
         if "[trainer] resumed from step 2" not in out:
             raise AssertionError("the resumed run did not start at step 2")
         meta = json.loads((ckpt / "meta.json").read_text())
@@ -2052,11 +2149,10 @@ def _check_path_pools(calls, what: str):
 
 
 def phase_contracts_cli(device):
-    """Phase 15: ``python3 -m multimodal_clinical_tpu_torch --dir cremad
-    --set model_type=qmf`` at full width on the synthetic twin, two epochs;
-    then ``--resume`` for a third in process through the same entry point,
+    """Phase 15: the CLI's ``--dir cremad --set model_type=qmf`` at full
+    width on the synthetic twin, two epochs; then ``--resume`` for a third,
     whose restored History tables must equal the saved ones; then ``--dir
-    ave`` for one epoch."""
+    ave`` for one epoch; all in process through ``__main__.run_training``."""
     from multimodal_clinical_tpu_torch import __main__ as cli
     from multimodal_clinical_tpu_torch.engine import run
 
@@ -2066,7 +2162,8 @@ def phase_contracts_cli(device):
     try:
         base = ["--set", f"ckpt_dir={work}", "--set", f"data_path={work}/none"]
         qmf = base + ["--set", "model_type=qmf"]
-        out = _cli(qmf + ["--set", "num_epochs=2"], bench="cremad")
+        out = _cli(qmf + ["--set", "num_epochs=2"], bench="cremad",
+                   device=device)
         summary = ast.literal_eval(out.strip().splitlines()[-1])
         if not math.isfinite(summary.get("test_epoch/test_avg_df_acc",
                                          math.nan)):
@@ -2109,7 +2206,8 @@ def phase_contracts_cli(device):
             f"step 2 and the saved History, {int((saved['qmf_correctness'] != 0).sum())}"
             f" of {saved['qmf_correctness'].numel()} entries written; three "
             f"epochs done")
-        out = _cli(base + ["--set", "num_epochs=1"], bench="ave")
+        out = _cli(base + ["--set", "num_epochs=1"], bench="ave",
+                   device=device)
         summary = ast.literal_eval(out.strip().splitlines()[-1])
         rows = _epoch_rows(work / "ave_cls28_jprobas_seeds")
         if (not math.isfinite(summary.get("avg_test_acc", math.nan))
@@ -2383,11 +2481,12 @@ def phase_disk_vggsound(device, card: str, trees, kernels):
     shutil.rmtree(work, ignore_errors=True)
     base = ["--set", f"ckpt_dir={work}", "--set",
             f"data_path={trees['vggsound']}"]
-    out = _cli(base + ["--set", f"num_epochs={DISK_EPOCHS}"])
+    out = _cli(base + ["--set", f"num_epochs={DISK_EPOCHS}"], device=device)
     summary = ast.literal_eval(out.strip().splitlines()[-1])
     if not math.isfinite(summary.get("test_epoch/test_avg_acc", math.nan)):
         raise AssertionError(f"no test_epoch/test_avg_acc: {summary}")
-    out = _cli(base + ["--set", f"num_epochs={DISK_EPOCHS + 1}", "--resume"])
+    out = _cli(base + ["--set", f"num_epochs={DISK_EPOCHS + 1}", "--resume"],
+               device=device)
     done = DISK_EPOCHS * steps["train"]
     meta = json.loads((work / RUN_NAME / "ckpt" / "meta.json").read_text())
     if (f"[trainer] resumed from step {done}" not in out
@@ -2417,12 +2516,13 @@ def phase_disk_contracts(device, card: str, trees, kernels):
     steps = -(-DISK_CREMAD[0] // FULL_BATCH)
     qmf = ["--set", f"ckpt_dir={work}", "--set",
            f"data_path={trees['cremad_pkl']}", "--set", "model_type=qmf"]
-    out = _cli(qmf + ["--set", "num_epochs=2"], bench="cremad")
+    out = _cli(qmf + ["--set", "num_epochs=2"], bench="cremad", device=device)
     summary = ast.literal_eval(out.strip().splitlines()[-1])
     if not math.isfinite(summary.get("test_epoch/test_avg_df_acc",
                                      math.nan)):
         raise AssertionError(f"no test_epoch/test_avg_df_acc: {summary}")
-    out = _cli(qmf + ["--set", "num_epochs=3", "--resume"], bench="cremad")
+    out = _cli(qmf + ["--set", "num_epochs=3", "--resume"], bench="cremad",
+               device=device)
     meta = json.loads((work / "cremad_cls6" / "ckpt" / "meta.json")
                       .read_text())
     if (f"[trainer] resumed from step {2 * steps}" not in out
@@ -2433,7 +2533,7 @@ def phase_disk_contracts(device, card: str, trees, kernels):
 
     out = _cli(["--set", f"ckpt_dir={work}", "--set",
                 f"data_path={trees['ave_pkl']}", "--set", "num_epochs=1"],
-               bench="ave")
+               bench="ave", device=device)
     summary = ast.literal_eval(out.strip().splitlines()[-1])
     rows = _epoch_rows(work / "ave_cls28_jprobas_seeds")
     if (not math.isfinite(summary.get("avg_test_acc", math.nan))
@@ -2872,14 +2972,15 @@ def _drive_small_type(device, card: str, bench: str, model_type: str):
 
 
 def _small_cli_runs(device, bench: str, work: Path, model_type=None,
-                    others=None):
-    """Phase 17c (and 19c) for one benchmark: the CLI on the twin for two
-    epochs in ``model_type`` (by default SMALL_CLI's; as ``python3 -m
-    multimodal_clinical_tpu_torch --dir <bench>`` for SMALL_CLI_PROCESS and
-    food101, else its ``run_training`` in process), ``--resume`` for a
-    third in process (the restored optimizer state, EMA and QMF tables
-    equal the saved ones), then each of ``others`` (by default every other
-    model type) for one epoch in process."""
+                    others=None, data_path=None, process=None):
+    """Phase 17c (and 19c, 20d) for one benchmark: the CLI on the twin (or
+    on the files at ``data_path``) for two epochs in ``model_type`` (by
+    default SMALL_CLI's; as ``python3 -m multimodal_clinical_tpu_torch
+    --dir <bench>`` where ``process``, by default for SMALL_CLI_PROCESS,
+    else its ``run_training`` in process), ``--resume`` for a third in
+    process (the restored optimizer state, EMA and QMF tables equal the
+    saved ones), then each of ``others`` (by default every other model
+    type) for one epoch in process."""
     import importlib
 
     from multimodal_clinical_tpu_torch import __main__ as cli
@@ -2890,10 +2991,13 @@ def _small_cli_runs(device, bench: str, work: Path, model_type=None,
     model_type = model_type or SMALL_CLI[bench]
     others = [t for t in (others or module.MODEL_TYPES) if t != model_type]
     root = work / bench
-    base = ["--set", f"ckpt_dir={root}", "--set", f"data_path={root}/none"]
+    data_path = data_path or f"{root}/none"
+    base = ["--set", f"ckpt_dir={root}", "--set", f"data_path={data_path}"]
     argv = base + ["--set", f"model_type={model_type}", "--set",
                    "num_epochs=2"]
-    if bench in (SMALL_CLI_PROCESS, "food101"):
+    if process is None:
+        process = bench == SMALL_CLI_PROCESS
+    if process:
         out = _cli(argv, bench=bench)
         summary = ast.literal_eval(out.strip().splitlines()[-1])
     else:
@@ -2955,7 +3059,7 @@ def _small_cli_runs(device, bench: str, work: Path, model_type=None,
         t = time.perf_counter()
         summary = cli.run_training(
             ["--dir", bench, "--set", f"ckpt_dir={root / other}", "--set",
-             f"data_path={root}/none", "--set", f"model_type={other}",
+             f"data_path={data_path}", "--set", f"model_type={other}",
              "--set", "num_epochs=1"], device=device)
         if not math.isfinite(summary.get("test_epoch/test_avg_acc",
                                          math.nan)):
@@ -3166,15 +3270,17 @@ def _injected_dropout(step: int):
     return source
 
 
-def _wide_steps(dev, dtype, bench: str, model_type: str, kinds):
-    """Two train steps of a narrow 18a net in fp32 compute (``dtype`` the
-    parameters' and inputs'), in the keys of ``_small_steps``; frozen
-    parameters have no gradient and no optimizer state."""
+def _wide_steps(dev, dtype, bench: str, model_type: str, kinds,
+                **overrides):
+    """Two train steps of a narrow 18a (or 20a) net in fp32 compute
+    (``dtype`` the parameters' and inputs'; ``overrides`` config keys), in
+    the keys of ``_small_steps``; frozen parameters have no gradient and
+    no optimizer state."""
     from multimodal_clinical_tpu_torch.engine.state import create_train_state
     from multimodal_clinical_tpu_torch.engine.steps import make_train_step
 
     _, spec, opt, args = _wide_spec(bench, model_type, narrow=True,
-                                    compute_dtype="float32")
+                                    compute_dtype="float32", **overrides)
     state = create_train_state(spec, args, 0, steps_per_epoch=100,
                                device=dev, **opt)
     state.model.to(dtype)
@@ -3883,41 +3989,374 @@ def phase_food101(device, card: str, kernels):
     log(f"[food101] phase 19 took {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 20: Food101's legacy pair -----------------------------------------
+
+LEGACY_TYPES = ("jprobas", "jprobas_jlogits")
+# 20a: the towers of tests/test_food101_legacy.py through the config's
+# keys (a two-stage ResNet, two 32-wide BERT layers of 4 heads over the
+# full vocabulary), two steps of WIDE_ROWS rows of 32 x 32 images and 16
+# ids (padded tails, a row of padding only)
+LEGACY_NARROW = dict(legacy_stages=[1, 1], legacy_bert_layers=2,
+                     legacy_bert_width=32, legacy_bert_heads=4)
+LEGACY_NARROW_KINDS = [("normal", (32, 32, 3)), ("ids", 16)]
+# 20b: the published geometry, nothing cut (configs/food101.yaml,
+# data/food101_legacy.py): torchvision resnet50 and bert-base-uncased in
+# bf16 at batch 128 over 101 classes, 224 x 224 x 3 ImageNet-normalised
+# images and 512 ids padded with 0; the warm-up batch with 4 padded rows
+LEGACY_KINDS = [("normal", (224, 224, 3)), ("ids", 512)]
+LEGACY_BATCH, LEGACY_PAD, LEGACY_TIMED = 128, 4, 5
+# 20c: the seeded checkpoints' towers in fp32 (TF32 off), card against CPU:
+# the same products summed in another order through 12 layers or 16 blocks
+LEGACY_LOAD_TOL = 1e-4
+# 20d: the corpus, cut in rows only (train, test; UPMC Food-101 has ~67 000
+# and ~22 700), its JPEGs at Food-101's 512 pixels a side
+LEGACY_DISK = (256, 64)
+LEGACY_IMAGE = (512, 384)
+LEGACY_DIR = WORK_DIR / "food101_legacy"
+
+
+def phase_legacy_card_against_cpu(device):
+    """Phase 20a: the narrow legacy net under jprobas and jprobas_jlogits,
+    two train steps on the card and on the CPU from the same weights,
+    inputs and dropout masks (BERT's seven a step, the attention weights'
+    included), TF32 off: fp32 losses, BN buffers and EMA; float64 updates
+    and momentum of the two heads; the frozen towers bit-unchanged on both
+    devices with no optimizer state."""
+    cpu = torch.device("cpu")
+    with _torch_set(False, False, 2):
+        for model_type in LEGACY_TYPES:
+            what = f"food101 {model_type}"
+            card, host = (_wide_steps(dev, dtype, "food101", model_type,
+                                      LEGACY_NARROW_KINDS, **LEGACY_NARROW)
+                          for dev, dtype in ((device, torch.float32),
+                                             (cpu, torch.float32)))
+            _compare_fp32_steps(card, host, what)
+            card, host = (_wide_steps(dev, dtype, "food101", model_type,
+                                      LEGACY_NARROW_KINDS, **LEGACY_NARROW)
+                          for dev, dtype in ((device, torch.float64),
+                                             (cpu, torch.float64)))
+            for run in (card, host):
+                for key in run["frozen"]:
+                    if not (torch.equal(run["final"][key], run["init"][key])
+                            and not run["moments"][key]):
+                        raise AssertionError(f"{what}: frozen {key} moved")
+            tail = _compare_f64_small_steps(card, host, what)
+            log(f"[legacy] card against CPU, {what}: float64 losses card "
+                f"{card['losses']} cpu {host['losses']}, {tail}; "
+                f"{len(card['frozen'])} frozen leaves bit-unchanged")
+
+
+def _drive_legacy_type(device, card: str, model_type: str, batches):
+    """One warm-up step (a padded tail) and one more, after which every
+    frozen parameter must be bit-unchanged and every BN running statistic
+    of the ResNet50 moved; LEGACY_TIMED timed steps, one eval step and one
+    profiled step of ``model_type`` at the published geometry in bf16."""
+    from multimodal_clinical_tpu_torch.engine import steps
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+
+    torch.cuda.reset_peak_memory_stats()
+    _, spec, opt, args = _wide_spec("food101", model_type)
+    state = create_train_state(spec, args, 0, steps_per_epoch=100,
+                               device=device, **opt)
+    sd = state.model.state_dict()
+    frozen = {k: v.clone() for k, v in state.model.named_parameters()
+              if k.startswith(spec.frozen_prefixes)}
+    stats = {k: v.clone() for k, v in sd.items() if "running" in k}
+    train_step = steps.make_train_step(spec)
+    eval_step = steps.make_eval_step(spec)
+    losses = []
+    for batch in batches:
+        state, metrics = train_step(state, batch)
+        losses.append(float(metrics["train_loss"]))
+    moved = [k for k, v in frozen.items() if not torch.equal(sd[k], v)]
+    still = [k for k, v in stats.items() if torch.equal(sd[k], v)]
+    if moved or still or not frozen or not stats:
+        raise AssertionError(f"food101 {model_type}: frozen leaves moved "
+                             f"{moved[:3]}, BN statistics unmoved {still[:3]}")
+    step_ms = []
+    for _ in range(LEGACY_TIMED):
+        t = time.perf_counter()
+        state, metrics = train_step(state, batches[1])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["train_loss"]))
+    out = eval_step(state, batches[1])
+    kernels = {}
+    wall, busy = _profiled_step(train_step, state, batches[1], kernels)
+    if model_type == LEGACY_TYPES[0]:
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:FOOD_TOP]
+        log(f"[legacy {model_type}] the profiled step's {len(kernels)} "
+            f"kernels, the {FOOD_TOP} largest (device ms): " + "; ".join(
+                f"{name[:72]} {us / 1e3:.3f}" for name, us in top))
+    if not all(math.isfinite(x) for x in losses) or out[
+            "logits_stack"].shape != (LEGACY_BATCH, 2, 101) or not bool(
+            torch.isfinite(out["logits_stack"]).all()):
+        raise AssertionError(f"food101 {model_type}: losses {losses}, eval "
+                             f"{tuple(out['logits_stack'].shape)}")
+    median = statistics.median(step_ms)
+    idle = 1 - busy / median
+    if not 0 <= idle < 1:
+        raise AssertionError(f"food101 {model_type}: device busy {busy:.3f} "
+                             f"ms in a {median:.3f} ms median step")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"[legacy {model_type}] {card}: {args.compute_dtype} SGD at lr "
+        f"{state.optimizer.param_groups[0]['lr']:g}, {n_params} parameters "
+        f"({sum(v.numel() for v in frozen.values())} frozen, bit-unchanged "
+        f"after two steps; {len(stats)} BN running statistics moved); train "
+        f"step median {median:.3f} ms over {LEGACY_TIMED} "
+        f"({min(step_ms):.3f}-{max(step_ms):.3f}); "
+        f"{LEGACY_BATCH / median * 1e3:.1f} samples/s at batch "
+        f"{LEGACY_BATCH}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; one profiled "
+        f"step {wall:.3f} ms, device busy {busy:.3f} ms in it, idle share "
+        f"{idle:.3f} of the median step; warm-up loss {losses[0]:.5f}, eval "
+        f"loss {float(out['loss']):.5f}")
+    return median
+
+
+def _legacy_load_pretrained(device):
+    """Phase 20c: a seeded torchvision-named resnet50 ``.pth`` (its ``fc``
+    and ``num_batches_tracked`` included) and an HF-named bert-base
+    ``model.safetensors`` (under ``bert.``, with the pooler and a token
+    classifier), written by torch and the ``safetensors`` package, through
+    ``load_pretrained``: the towers hold them bit for bit and the heads are
+    untouched; then the towers loaded from them in fp32 (TF32 off), their
+    forward on the card against the CPU."""
+    from safetensors.torch import save_file
+
+    from multimodal_clinical_tpu_torch.benchmarks import food101
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+    from multimodal_clinical_tpu_torch.models import bert, zoo
+    from multimodal_clinical_tpu_torch.models.pretrained import (
+        copy_by_name, torch_state_dict,
+    )
+
+    _, spec, opt, args = _wide_spec("food101", "jprobas")
+    state = create_train_state(spec, args, 0, steps_per_epoch=10,
+                               device=device, **opt)
+    gen = torch.Generator().manual_seed(17)
+
+    def seeded(module, prefix=""):
+        out = {}
+        for key, value in module.state_dict().items():
+            noise = torch.randn(value.shape, generator=gen) * 0.02
+            out[prefix + key] = (noise.abs() + 1.0 if key.endswith(
+                ("running_var", "LayerNorm.weight")) else noise)
+        return out
+
+    r50 = seeded(state.model.x1_model.features)
+    r50.update({k.replace("running_var", "num_batches_tracked"):
+                torch.tensor(1000) for k in list(r50)
+                if k.endswith("running_var")})
+    r50["fc.weight"], r50["fc.bias"] = torch.randn(1000, 2048), torch.zeros(
+        1000)
+    hf = seeded(state.model.x2_model.model, "bert.")
+    hf.update({"bert.pooler.dense.weight": torch.randn(768, 768),
+               "bert.pooler.dense.bias": torch.zeros(768),
+               "classifier.weight": torch.randn(9, 768),
+               "classifier.bias": torch.zeros(9)})
+    LEGACY_DIR.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    torch.save(r50, LEGACY_DIR / "resnet50.pth")
+    where = LEGACY_DIR / "bert"
+    where.mkdir(exist_ok=True)
+    save_file(hf, str(where / "model.safetensors"))
+    sizes = [(LEGACY_DIR / "resnet50.pth").stat().st_size,
+             (where / "model.safetensors").stat().st_size]
+    heads = [state.model.x1_model.fc.weight.clone(),
+             state.model.x2_model.classifier.weight.clone()]
+    args.resnet50_weights, args.bert_weights = (
+        str(LEGACY_DIR / "resnet50.pth"), str(where))
+    state = food101.load_pretrained(args, state)
+    loaded = time.perf_counter() - t
+    got = state.model.state_dict()
+    held = all(torch.equal(got["x1_model.features." + k].cpu(), r50[k])
+               for k in state.model.x1_model.features.state_dict())
+    held = held and all(
+        torch.equal(got["x2_model.model." + k].cpu(), hf["bert." + k])
+        for k in state.model.x2_model.model.state_dict())
+    if not held or not (torch.equal(state.model.x1_model.fc.weight, heads[0])
+                        and torch.equal(state.model.x2_model.classifier.weight,
+                                        heads[1])):
+        raise AssertionError("food101 resnet50_weights/bert_weights: the "
+                             "towers do not hold the files, or a head moved")
+    del state
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(rng.standard_normal((2, 224, 224, 3),
+                                                  dtype=np.float32))
+    ids = torch.from_numpy(rng.integers(1, 30522, (2, 512)))
+    ids[0, 40:] = 0
+    outs = []
+    with _torch_set(False, False, TORCH_DEFAULTS[2]), torch.no_grad():
+        for dev in (device, torch.device("cpu")):
+            net = zoo.Food101LegacyFusionNet(101).eval()
+            copy_by_name(torch_state_dict(args.resnet50_weights),
+                         net.x1_model.features)
+            bert.load_hf_bert_params(args.bert_weights, net.x2_model.model)
+            net.to(dev)
+            outs.append([net.x1_model.features(images.to(dev)).cpu(),
+                         net.x2_model.model(ids.to(dev)).cpu()])
+    errs = [_scaled_err(c, h) for c, h in zip(*outs)]
+    if not max(errs) <= LEGACY_LOAD_TOL:
+        raise AssertionError(f"food101 legacy weights: towers card against "
+                             f"CPU {errs}")
+    log(f"[legacy] resnet50_weights and bert_weights: a seeded resnet50 "
+        f".pth ({sizes[0] / 1e6:.1f} MB, {len(r50)} entries) and bert-base "
+        f"model.safetensors ({sizes[1] / 1e6:.1f} MB, {len(hf)} entries) "
+        f"written and loaded in {loaded:.1f} s; the towers hold them bit for "
+        f"bit, the heads untouched; their fp32 forward on the card against "
+        f"the CPU: ResNet50 {errs[0]:.2e}, BERT {errs[1]:.2e} of the largest "
+        f"entry (limit {LEGACY_LOAD_TOL:g})")
+
+
+def _legacy_disk(device):
+    """Phase 20d: a ``build_food101_legacy_tree`` corpus of LEGACY_DISK
+    rows through ``get_data``: the first train batch on the card against
+    its gather; ``python3 -m multimodal_clinical_tpu_torch --dir food101
+    --set model_type=jprobas_jlogits`` on it for two epochs, ``--resume``
+    for a third in process, and jprobas for one epoch in process."""
+    from multimodal_clinical_tpu_torch.benchmarks import disk_fixture, food101
+    from multimodal_clinical_tpu_torch.config import load_config
+    from multimodal_clinical_tpu_torch.data.food101_legacy import (
+        Food101LegacyDiskDataset,
+    )
+    from multimodal_clinical_tpu_torch.engine import run
+
+    tree = LEGACY_DIR / "disk"
+    t = time.perf_counter()
+    made = disk_fixture.build_food101_legacy_tree(
+        str(tree), *LEGACY_DISK, size=LEGACY_IMAGE)
+    log(f"[disk] Food101 legacy {made['rows']} samples ({made['bytes'] / 1e6:.1f} "
+        f"MB of JPEGs of {LEGACY_IMAGE[0]} x {LEGACY_IMAGE[1]}) written in "
+        f"{time.perf_counter() - t:.1f} s")
+    args = load_config("food101", overrides=dict(
+        data_path=f"{tree}/", model_type="jprobas_jlogits"))
+    data = food101.get_data(args)
+    if data.synthetic or not isinstance(data.train,
+                                        Food101LegacyDiskDataset):
+        raise AssertionError("food101 legacy get_data did not read the "
+                             "corpus")
+    _check_first_batch(run.build_loaders(args, data, device)[0], data.train,
+                       "Food101 legacy")
+    _small_cli_runs(device, "food101", LEGACY_DIR,
+                    model_type="jprobas_jlogits", others=LEGACY_TYPES,
+                    data_path=f"{tree}/", process=True)
+
+
+def phase_food101_legacy(device, card: str, kernels):
+    """Phase 20: Food101's legacy pair.  (a) card against CPU; then, the
+    launch counts set to 0 first and read last: (b) each model type at the
+    published geometry, (c) ``load_pretrained`` from seeded checkpoints,
+    (d) the CLI on a disk corpus with ``--resume``.  No TPU kernel lies on
+    this path: each must record 0 launches."""
+    t0 = time.perf_counter()
+    phase_legacy_card_against_cpu(device)
+    log(f"[legacy] 20a took {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(LEGACY_DIR, ignore_errors=True)
+    launchers = {**_all_launchers(), **_probe_launchers()}
+    try:
+        with _torch_set(*TORCH_DEFAULTS):
+            for fn in launchers.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            batches = _wide_batches(LEGACY_KINDS, 101, device, LEGACY_BATCH,
+                                    (LEGACY_BATCH - LEGACY_PAD, LEGACY_BATCH),
+                                    dtype=torch.bfloat16)
+            for model_type in LEGACY_TYPES:
+                _drive_legacy_type(device, card, model_type, batches)
+                torch.cuda.empty_cache()
+            del batches
+            log(f"[legacy] 20b took {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            _legacy_load_pretrained(device)
+            torch.cuda.empty_cache()
+            log(f"[legacy] 20c took {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            _legacy_disk(device)
+            log(f"[legacy] 20d took {time.perf_counter() - t:.1f} s")
+            launches = {name: fn.launches for name, fn in launchers.items()}
+            if any(launches.values()):
+                raise AssertionError("TPU kernels launched on the Food101 "
+                                     f"legacy path: {launches}")
+            for entry in kernels:
+                entry.setdefault("launches_by_path", {})["food101_legacy"] = (
+                    launches[entry["name"]])
+            log(f"[legacy] launches of every TPU kernel on the Food101 legacy "
+                f"path: {launches}")
+    finally:
+        shutil.rmtree(LEGACY_DIR, ignore_errors=True)
+    log(f"[legacy] phase 20 took {time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def _phase_time(name: str, seconds: dict):
+    """Adds the block's wall seconds to ``seconds[name]`` and logs them."""
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        log(f"[time] phase {name}: {seconds[name]:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
               "GPU", file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     log(f"[device] {card}; {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} visible; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    phase_build()
-    kernels = phase_kernels(device)
-    kernels += phase_switched_kernels(device,
-                                      *phase_switched_towers(device, card))
-    phase_card_against_cpu(device)
-    fixture_ms = phase_main_path(device, card, kernels)
-    phase_cli()
-    phase_loop(device, card, fixture_ms, kernels)
-    kernels += phase_probe_kernels(phase_probes(card))
-    phase_contracts_card_against_cpu(device)
-    phase_full_width(device, card, kernels)
-    phase_contracts_cli(device)
-    try:
-        trees = phase_disk_build()
-        phase_disk_vggsound(device, card, trees, kernels)
-        phase_disk_contracts(device, card, trees, kernels)
-    finally:
-        shutil.rmtree(DISK_DIR, ignore_errors=True)
-    phase_small_benchmarks(device, card, kernels)
-    phase_wide_benchmarks(device, card, kernels)
-    phase_food101(device, card, kernels)
+    seconds = {}
+    with _phase_time("2", seconds):
+        phase_build()
+    with _phase_time("3", seconds):
+        kernels = phase_kernels(device)
+    with _phase_time("4-5", seconds):
+        kernels += phase_switched_kernels(
+            device, *phase_switched_towers(device, card))
+    with _phase_time("6", seconds):
+        phase_card_against_cpu(device)
+    with _phase_time("7-8", seconds):
+        fixture_ms = phase_main_path(device, card, kernels)
+    with _phase_time("11", seconds):
+        phase_cli(device)
+    with _phase_time("12", seconds):
+        phase_loop(device, card, fixture_ms, kernels)
+    with _phase_time("9-10", seconds):
+        kernels += phase_probe_kernels(phase_probes(card))
+    with _phase_time("13", seconds):
+        phase_contracts_card_against_cpu(device)
+    with _phase_time("14", seconds):
+        phase_full_width(device, card, kernels)
+    with _phase_time("15", seconds):
+        phase_contracts_cli(device)
+    with _phase_time("16", seconds):
+        try:
+            trees = phase_disk_build()
+            phase_disk_vggsound(device, card, trees, kernels)
+            phase_disk_contracts(device, card, trees, kernels)
+        finally:
+            shutil.rmtree(DISK_DIR, ignore_errors=True)
+    with _phase_time("17", seconds):
+        phase_small_benchmarks(device, card, kernels)
+    with _phase_time("18", seconds):
+        phase_wide_benchmarks(device, card, kernels)
+    with _phase_time("19", seconds):
+        phase_food101(device, card, kernels)
+    with _phase_time("20", seconds):
+        phase_food101_legacy(device, card, kernels)
+    log(f"[time] every phase, wall s: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+        f"the script so far {time.perf_counter() - t0:.1f} s")
     missing = [e["name"] for e in kernels if not e["launches"]]
-    if any(e.get("launches_by_path", {}).get("food101") != 0
-           for e in kernels):
-        raise AssertionError("a kernel lacks its food101: 0 launches")
+    for path in ("food101", "food101_legacy"):
+        if any(e.get("launches_by_path", {}).get(path) != 0
+               for e in kernels):
+            raise AssertionError(f"a kernel lacks its {path}: 0 launches")
     if missing:
         raise AssertionError(f"kernels not launched on their path: {missing}")
     print(card)

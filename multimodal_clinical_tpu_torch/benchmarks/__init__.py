@@ -7,8 +7,7 @@ Each benchmark module exposes
 A benchmark may also expose ``load_pretrained(args, state)``, which
 ``engine/run.py`` calls between the state's init and ``init_ckpt``.  The
 port serves all nine benchmarks; ``_NOT_PORTED`` maps a name still to
-come to the ROADMAP.md queue A item that ports it, and is empty.  Food101's
-legacy model types raise in ``benchmarks/food101.py`` (item 15b).
+come to the ROADMAP.md queue A item that ports it, and is empty.
 """
 
 from __future__ import annotations

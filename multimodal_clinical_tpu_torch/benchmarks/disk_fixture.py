@@ -1,4 +1,5 @@
-"""Disk corpora of VGGSound, Crema-D, AVE, Enrico, FakeNews and Food101 in
+"""Disk corpora of VGGSound, Crema-D, AVE, Enrico, FakeNews and Food101
+(both feeds) in
 the reference's on-disk layouts, made from a seed: what ``get_data`` reads where the real dataset
 is present, for the tests and ``chip_smoke.py``.
 
@@ -30,6 +31,9 @@ for the CPU tests.
   _dialogue]_dataframe.pkl`` ({"id", "embedding", "label"[,
   "dialogue_embedding"]}, as ``tools/preprocess.py fakenews-embed``
   writes them).
+- Food101's legacy feed (food101/get_data_old.py): ``texts_{train,test}
+  .csv`` rows ``image_name,text,food`` (the name ``<food>_<n>.jpg``),
+  ``images/<split>/<food>/<image_name>`` and a WordPiece ``vocab.txt``.
 
 The pickles are what ``tools/preprocess.py cremad-audio`` computes: the
 clip's wav tiled to 10 s (``_tile_clip_waveform``, or AVE's window) through
@@ -38,6 +42,7 @@ clip's wav tiled to 10 s (``_tile_clip_waveform``, or AVE's window) through
 
 from __future__ import annotations
 
+import csv
 import io
 import os
 import pickle
@@ -367,4 +372,38 @@ def build_food101_tree(root: str, n_train: int, n_dev: int, n_test: int,
         offset += count
         with open(os.path.join(root, f"my_{split}_food.txt"), "w") as f:
             f.writelines(lines)
+    return {"rows": offset, "bytes": nbytes}
+
+
+def build_food101_legacy_tree(root: str, n_train: int, n_test: int,
+                              n_classes: int = 101,
+                              size: Tuple[int, int] = (64, 48),
+                              quality: int = 90, distinct: int = 16,
+                              vocab: bool = True, seed: int = 0) -> Dict:
+    """The two CSVs of recipe titles (HTML tags, digits and punctuation for
+    the regex chain to strip) over ``n_classes`` foods, cycled in both
+    splits (the test split's among the train split's), the JPEGs of
+    ``size`` = (width, height) under ``images/<split>/<food>/``, and with
+    ``vocab`` a WordPiece ``vocab.txt`` (without it the feed hashes)."""
+    rng = np.random.default_rng(seed)
+    jpegs = jpeg_pool(seed, distinct, size, quality)
+    foods = [f"food_{k:03d}" for k in range(min(n_classes, n_train))]
+    nbytes, offset = 0, 0
+    for split, count in (("train", n_train), ("test", n_test)):
+        rows = []
+        for i in range(offset, offset + count):
+            food = foods[i % len(foods)]
+            name = f"{food}_{i:05d}.jpg"
+            title = f"<b>{_title(rng)}</b> {int(rng.integers(1, 100))}x"
+            rows.append((name, title, food))
+            folder = os.path.join(root, "images", split, food)
+            os.makedirs(folder, exist_ok=True)
+            nbytes += _write(os.path.join(folder, name), jpegs[i % distinct])
+        offset += count
+        with open(os.path.join(root, f"texts_{split}.csv"), "w",
+                  newline="") as f:
+            csv.writer(f).writerows(rows)
+    if vocab:
+        with open(os.path.join(root, "vocab.txt"), "w") as f:
+            f.writelines(w + "\n" for w in WORDPIECE_VOCAB)
     return {"rows": offset, "bytes": nbytes}

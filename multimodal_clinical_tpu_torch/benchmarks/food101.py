@@ -15,9 +15,15 @@ Model types (food101/__init__.py):
   ogm_ge: the heads are ``x1_model``/``x2_model`` and hold no 4-D
       parameter, so the modulation is the reference's no-op
       (food101/joint_model_ogm_ge.py);
-  qmf: the QMF loss over the two heads' logits (food101/joint_model_qmf.py).
-The legacy ``jprobas`` / ``jprobas_jlogits`` (a frozen ResNet50 and a
-frozen BERT) raise until ROADMAP.md queue A item 15b ports them.
+  qmf: the QMF loss over the two heads' logits (food101/joint_model_qmf.py);
+  jprobas / jprobas_jlogits: the legacy frozen ResNet50 and frozen BERT
+      towers (food101/joint_model_proba.py, joint_model_proba_logits.py:
+      30-90), x1 the (B, 224, 224, 3) image and x2 the bert-base token
+      ids, StepLR(500, 0.75); their data are ``texts_{train,test}.csv``
+      and the JPEGs (``data/food101_legacy.py``), val and test both the
+      test split, and their weights come from local torchvision and HF
+      checkpoints (``resnet50_weights``, ``bert_weights``), random
+      otherwise.
 
 The train split is read in list order every epoch: the reference's train
 DataLoader passes neither a sampler nor shuffle (food101/run_training.py:
@@ -34,18 +40,14 @@ import numpy as np
 from ..data.synthetic import make_synthetic_splits
 from ..engine.run import DataBundle
 from ..engine.spec import ModelSpec, resolve_dtype
+from ..models.bert import load_hf_bert_params
+from ..models.pretrained import copy_by_name, torch_state_dict
 from ..models.siglip import load_hf_siglip_params
-from ..models.zoo import Food101FusionNet
+from ..models.zoo import Food101FusionNet, Food101LegacyFusionNet
 
 MODEL_TYPES = ("jlogits", "ensemble", "ogm_ge", "qmf", "jprobas",
                "jprobas_jlogits")
 LEGACY_TYPES = ("jprobas", "jprobas_jlogits")
-
-
-def _refuse_legacy(what: str) -> None:
-    raise NotImplementedError(
-        f"food101 {what}: the legacy frozen ResNet50 + BERT pair is not "
-        "ported yet (ROADMAP.md queue A, item 15b)")
 
 
 class Food101DiskDataset:
@@ -84,9 +86,9 @@ class Food101DiskDataset:
 
 
 def get_data(args) -> DataBundle:
-    if getattr(args, "model_type", "qmf") in LEGACY_TYPES:
-        _refuse_legacy(f"model_type {args.model_type!r}")
     data_dir = getattr(args, "data_path", "data/food101/")
+    if getattr(args, "model_type", "qmf") in LEGACY_TYPES:
+        return _get_legacy_data(args, data_dir)
     if os.path.exists(os.path.join(data_dir, "my_train_food.txt")):
         train, val, test = (Food101DiskDataset(data_dir, f"my_{s}_food.txt")
                             for s in ("train", "dev", "test"))
@@ -102,26 +104,86 @@ def get_data(args) -> DataBundle:
                       synthetic=synthetic)
 
 
+def _get_legacy_data(args, data_dir: str) -> DataBundle:
+    """The legacy feed (food101/get_data_old.py): ``texts_train.csv`` for
+    train, ``texts_test.csv`` for val and test, read in order (the legacy
+    types run through the same sampler-less, shuffle-less runner,
+    food101/run_training.py:39-45); without ``texts_train.csv``, the
+    synthetic twin ``food101_legacy``."""
+    if os.path.exists(os.path.join(data_dir, "texts_train.csv")):
+        from ..data.food101_legacy import Food101LegacyDiskDataset
+
+        train = Food101LegacyDiskDataset(data_dir, "train", args)
+        val = Food101LegacyDiskDataset(data_dir, "test", args)
+        return DataBundle(train, val, val, train_sampler="sequential",
+                          synthetic=False)
+    print(f"[food101] legacy texts_train.csv not found under {data_dir!r}; "
+          "using synthetic twin")
+    train, val, test = make_synthetic_splits(
+        "food101_legacy", int(args.num_classes),
+        int(getattr(args, "seed", 0)), n_train=128, n_val=32, n_test=32)
+    return DataBundle(train, val, test, train_sampler="sequential",
+                      synthetic=True)
+
+
 def load_pretrained(args, state):
-    """The SigLIP towers from a local HF snapshot directory
-    (``siglip_weights``: ``model.safetensors`` or ``pytorch_model.bin``),
-    in place; a no-op when unset."""
-    for key in ("resnet50_weights", "bert_weights"):
-        if getattr(args, key, None):
-            _refuse_legacy(key)
+    """Tower weights from local checkpoints, in place; a no-op when unset.
+
+      * ``siglip_weights``: an HF SigLIP snapshot directory
+        (``model.safetensors`` or ``pytorch_model.bin``) for the SigLIP
+        family;
+      * ``resnet50_weights``: a torchvision resnet50 state_dict into the
+        legacy image tower's ``features`` by name (its ``fc`` and
+        ``num_batches_tracked`` dropped: the head is fresh);
+      * ``bert_weights``: an HF bert-base checkpoint (a file or snapshot
+        directory; keys under ``bert.`` for a ``BertFor...`` one) into the
+        legacy text tower's encoder (food101/joint_model_proba_logits.py:
+        52-66 loads IMAGENET1K_V2 and bert-base-uncased).
+    """
     ckpt = getattr(args, "siglip_weights", None)
     if ckpt:
         load_hf_siglip_params(ckpt, state.model.model)
         print(f"[food101] loaded SigLIP weights from {ckpt}")
+    r50 = getattr(args, "resnet50_weights", None)
+    bert = getattr(args, "bert_weights", None)
+    if not (r50 or bert):
+        return state
+    if not isinstance(state.model, Food101LegacyFusionNet):
+        raise ValueError(
+            "resnet50_weights/bert_weights apply to the legacy "
+            "jprobas/jprobas_jlogits variants only (current model_type="
+            f"{getattr(args, 'model_type', '?')!r})")
+    if r50:
+        copy_by_name(torch_state_dict(r50), state.model.x1_model.features,
+                     what="torchvision resnet50")
+        print(f"[food101] loaded resnet50 tower from {r50}")
+    if bert:
+        load_hf_bert_params(bert, state.model.x2_model.model)
+        print(f"[food101] loaded BERT tower from {bert}")
     return state
 
 
 def get_model_spec(args, n_train: int) -> Tuple[ModelSpec, Dict]:
     model_type = getattr(args, "model_type", "qmf")
-    if model_type in LEGACY_TYPES:
-        _refuse_legacy(f"model_type {model_type!r}")
     if model_type not in MODEL_TYPES:
         raise NotImplementedError(f"food101 model_type {model_type!r}")
+    if model_type in LEGACY_TYPES:
+        legacy = Food101LegacyFusionNet(
+            int(args.num_classes),
+            stage_sizes=tuple(getattr(args, "legacy_stages", (3, 4, 6, 3))),
+            bert_layers=int(getattr(args, "legacy_bert_layers", 12)),
+            bert_width=int(getattr(args, "legacy_bert_width", 768)),
+            bert_heads=int(getattr(args, "legacy_bert_heads", 12)),
+            bert_vocab=int(getattr(args, "legacy_bert_vocab", 30522)),
+            dtype=resolve_dtype(args))
+        # StepLR(500, 0.75): food101/joint_model_proba_logits.py:282
+        spec = ModelSpec(
+            module=legacy, contract="jprobas",
+            frozen_prefixes=("x1_model.features", "x2_model.model"),
+            eval_fusion=("logits" if model_type == "jprobas_jlogits"
+                         else None),
+            sched_step_size=500, sched_gamma=0.75)
+        return spec, {}
     module = Food101FusionNet(int(args.num_classes), resolve_dtype(args))
     common = dict(module=module, sched_step_size=50, sched_gamma=0.5)
     if model_type == "ogm_ge":

@@ -222,6 +222,16 @@ def dropout_source(source: Optional[MaskSource]):
         _DROPOUT_SOURCE = previous
 
 
+def draw_keep(shape: Sequence[int], keep_prob: float,
+              device: torch.device) -> torch.Tensor:
+    """A train-mode dropout's bool keep mask of ``shape``: from the source
+    of the enclosing ``dropout_source`` block, else torch's global
+    generator."""
+    if _DROPOUT_SOURCE is not None:
+        return _DROPOUT_SOURCE(tuple(shape), keep_prob, device)
+    return torch.rand(tuple(shape), device=device) < keep_prob
+
+
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: in train mode keep each entry with probability
     1 - p and scale it by 1 / (1 - p), as ``x / keep_prob`` in the input's
@@ -238,9 +248,6 @@ class Dropout(nn.Module):
         if self.p == 1.0:
             return torch.zeros_like(x)
         keep_prob = 1.0 - self.p
-        if _DROPOUT_SOURCE is not None:
-            keep = _DROPOUT_SOURCE(tuple(x.shape), keep_prob, x.device)
-        else:
-            keep = torch.rand(x.shape, device=x.device) < keep_prob
+        keep = draw_keep(x.shape, keep_prob, x.device)
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))

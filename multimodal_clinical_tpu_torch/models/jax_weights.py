@@ -1,9 +1,9 @@
 """Flax -> torch weight loading: the inverse of the JAX package's
 ``models/torch_port.py`` functions ``port_resnet_encoder``, ``port_lenet``,
 ``port_gru_cell``, ``port_lstm_classifier``, ``port_resnet18_slim``,
-``port_vgg11_slim`` and ``port_bottleneck_encoder``, of ``models/siglip.py``'s
-``port_siglip_state_dict``, and the map of the FakeNews
-``TextTransformer``'s flax tree.
+``port_vgg11_slim``, ``port_bottleneck_encoder`` and ``port_bert``, of
+``models/siglip.py``'s ``port_siglip_state_dict``, and the map of the
+FakeNews ``TextTransformer``'s flax tree.
 
 The flax trees come in as nested dicts of numpy arrays (``params`` and
 ``batch_stats``), so this module needs nothing of JAX.  Layouts: conv HWIO
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .bert import BertEncoder
 from .common import BatchNormBase, TorchDense
 from .pretrained import BiasConv, VGG11Slim
 from .resnet import BottleneckResNetEncoder, Conv, ResNetEncoder
@@ -179,6 +180,43 @@ def _siglip_keys(model: SigLIPModel, prefix: str,
     return keys
 
 
+def _bert_keys(enc: BertEncoder, prefix: str,
+               path: Tuple[str, ...]) -> KeyMap:
+    """HF ``BertModel`` names -> the flax ``BertEncoder`` tree, the inverse
+    of the JAX ``port_bert``: q/k/v kernels (D, H, d) and biases (H, d),
+    the output kernel (H, d, D)."""
+    e = prefix + "embeddings."
+    keys: KeyMap = {
+        e + "word_embeddings.weight": (
+            "params", path + ("word_embeddings", "embedding"), "vector"),
+        e + "position_embeddings.weight": (
+            "params", path + ("position_embeddings",), "vector"),
+        e + "token_type_embeddings.weight": (
+            "params", path + ("token_type_embeddings",), "vector")}
+
+    def leaf(tkey, fpath, kind):
+        keys[tkey + ".weight"] = ("params", fpath + (
+            "scale" if kind == "norm" else "kernel",),
+            "vector" if kind == "norm" else kind)
+        keys[tkey + ".bias"] = ("params", fpath + ("bias",),
+                                "flat" if kind == "heads_in" else "vector")
+
+    leaf(e + "LayerNorm", path + ("embeddings_norm",), "norm")
+    for i in range(len(enc.encoder.layer)):
+        t, p = f"{prefix}encoder.layer.{i}.", path + (f"layer_{i}",)
+        for name in ("query", "key", "value"):
+            leaf(f"{t}attention.self.{name}", p + ("attention", name),
+                 "heads_in")
+        leaf(t + "attention.output.dense", p + ("attention", "out"),
+             "heads_out")
+        leaf(t + "attention.output.LayerNorm", p + ("attention_norm",),
+             "norm")
+        leaf(t + "intermediate.dense", p + ("intermediate",), "dense")
+        leaf(t + "output.dense", p + ("output",), "dense")
+        leaf(t + "output.LayerNorm", p + ("output_norm",), "norm")
+    return keys
+
+
 def _leaf_keys(module: nn.Module, tkey: str, path: Tuple[str, ...]
                ) -> KeyMap:
     """The entries of one layer of a tower, ``tkey`` its torch name and
@@ -219,6 +257,8 @@ def jax_key_map(model: nn.Module) -> KeyMap:
             keys.update(_text_keys(module, prefix, path))
         elif isinstance(module, SigLIPModel):
             keys.update(_siglip_keys(module, prefix, path))
+        elif isinstance(module, BertEncoder):
+            keys.update(_bert_keys(module, prefix, path))
         elif hasattr(module, "flax_names"):
             for child, scope in module.flax_names.items():
                 keys.update(_leaf_keys(module.get_submodule(child),

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -147,6 +147,27 @@ def torch_state_dict(path: str) -> Dict:
     if isinstance(sd, dict) and isinstance(sd.get("state_dict"), dict):
         sd = sd["state_dict"]  # lightning-style wrapper
     return sd
+
+
+@torch.no_grad()
+def copy_by_name(state: Mapping, module: nn.Module, prefix: str = "",
+                 what: str = "checkpoint") -> nn.Module:
+    """Copy every entry of ``module.state_dict()`` from ``state`` (numpy
+    or tensor values, keyed ``prefix`` + the module's name), in place;
+    raises on a missing key or a shape mismatch.  Keys of ``state`` the
+    module has no place for are ignored."""
+    for key, param in module.state_dict().items():
+        if prefix + key not in state:
+            raise KeyError(f"{what} state_dict has no {prefix + key!r}")
+        value = state[prefix + key]
+        if not torch.is_tensor(value):
+            value = torch.from_numpy(np.asarray(value))
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"{prefix + key}: checkpoint shape "
+                             f"{tuple(value.shape)} != model shape "
+                             f"{tuple(param.shape)}")
+        param.copy_(value)
+    return module
 
 
 # safetensors dtype names -> little-endian numpy dtypes; BF16 is read as

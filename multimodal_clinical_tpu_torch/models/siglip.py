@@ -38,13 +38,12 @@ from __future__ import annotations
 import math
 from typing import Mapping, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .common import lecun_normal_
-from .pretrained import torch_state_dict
+from .pretrained import copy_by_name, torch_state_dict
 from .zoo import Dense, LayerNorm, MultiHeadDotProductAttention
 
 WIDTH = 768
@@ -292,24 +291,13 @@ class SigLIPModel(nn.Module):
 
 # -- HF weights (a local checkpoint only) -------------------------------------
 
-@torch.no_grad()
 def port_siglip_state_dict(state: Mapping, model: SigLIPModel
                            ) -> SigLIPModel:
     """Copy an HF ``SiglipModel`` state_dict (numpy or tensor values) into
     ``model`` by name, in place; raises on a missing key or a shape
     mismatch.  Keys the port has no place for (``logit_scale``,
     ``logit_bias``, ``position_ids``) are ignored."""
-    for key, param in model.state_dict().items():
-        if key not in state:
-            raise KeyError(f"HF SigLIP state_dict has no {key!r}")
-        value = state[key]
-        if not torch.is_tensor(value):
-            value = torch.from_numpy(np.asarray(value))
-        if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(f"{key}: checkpoint shape {tuple(value.shape)} "
-                             f"!= model shape {tuple(param.shape)}")
-        param.copy_(value)
-    return model
+    return copy_by_name(state, model, what="HF SigLIP")
 
 
 def load_hf_siglip_params(checkpoint_path: str, model: SigLIPModel

@@ -2,8 +2,9 @@
 ``CremadFusionNet``, ``AVMnistFusionNet``, ``MimicFusionNet``,
 ``MustardFusionNet``, ``EnricoFusionNet``, ``EnricoVGGFusionNet``,
 ``FakeNewsFusionNet`` (with its ``TextTransformer``),
-``FakeNewsEmbedFusionNet`` and ``Food101FusionNet``.  ``forward(*modality_inputs)`` returns ``{"logits":
-[per-modality (B, C) logits]}``; fusion and losses live in
+``FakeNewsEmbedFusionNet``, ``Food101FusionNet`` and
+``Food101LegacyFusionNet``.  ``forward(*modality_inputs)`` returns
+``{"logits": [per-modality (B, C) logits]}``; fusion and losses live in
 ``engine/contracts.py``.  The towers are ``x1_model``, ``x2_model``, ...
 (the reference's attribute contract, which OGM-GE and the metrics
 address)."""
@@ -18,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import (
-    Dropout, TorchDense, global_avg_pool, lecun_normal_,
+    Dropout, TorchDense, draw_keep, global_avg_pool, lecun_normal_,
 )
 from .lenet import LeNet
 from .mlp import HeadMLP, MimicMLP
@@ -185,14 +186,18 @@ class LayerNorm(nn.Module):
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor,
-                          mask: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          mask: Optional[torch.Tensor] = None,
+                          dropout_rate: float = 0.0) -> torch.Tensor:
     """flax's ``dot_product_attention`` (0.12) on (B, L, H, d) heads,
     written out as its products and softmax: the query scaled by
     1 / sqrt(d) before q.k, masked logits set to the dtype's lowest finite
     value (so a row with nothing to attend to attends uniformly, where
     -inf masking gives NaN), the softmax in the inputs' dtype.  ``mask``
-    broadcasts to (B, H, Lq, Lk), True where a key is attended."""
+    broadcasts to (B, H, Lq, Lk), True where a key is attended.  A
+    ``dropout_rate`` above 0 drops attention weights after the softmax as
+    flax's ``broadcast_dropout`` does: one (1, 1, Lq, Lk) keep mask
+    (``common.draw_keep``) for the whole batch and every head, applied as
+    ``weights * (keep / keep_prob)`` in the weights' dtype."""
     depth = q.shape[-1]
     # jnp.sqrt(depth) in fp32, cast to the compute dtype
     q = q / torch.tensor(math.sqrt(depth), dtype=torch.float32).to(q.dtype)
@@ -200,6 +205,12 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
     if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
     weights = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        keep_prob = 1.0 - dropout_rate
+        keep = draw_keep((1, 1) + tuple(weights.shape[-2:]), keep_prob,
+                         weights.device)
+        weights = weights * (keep.to(weights.dtype) / torch.tensor(
+            keep_prob, dtype=weights.dtype))
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
@@ -212,15 +223,21 @@ class MultiHeadDotProductAttention(nn.Module):
     (H, d, D) kernel in the torch (out, in) layout: flax's own by default,
     HF's ``q_proj``/``k_proj``/``v_proj``/``out_proj`` for SigLIP; a
     subclass that packs the first three (``siglip.PackedAttention``)
-    names them None and overrides ``project``."""
+    names them None and overrides ``project``; with the out name None
+    (BERT, whose output projection HF keeps under another parent) the
+    caller projects ``attend``'s heads itself.  ``dropout_rate`` drops
+    attention weights in train mode (flax's ``dropout_rate``; 0 by
+    default)."""
 
     def __init__(self, dim: int, num_heads: int,
                  dtype: Optional[torch.dtype] = None,
-                 names: Sequence[str] = ("query", "key", "value", "out")):
+                 names: Sequence[str] = ("query", "key", "value", "out"),
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.num_heads = num_heads
         self.names = tuple(names)
+        self.dropout_rate = float(dropout_rate)
         for name in self.names:
             if name is not None:
                 self.add_module(name, Dense(dim, dim, dtype))
@@ -229,15 +246,23 @@ class MultiHeadDotProductAttention(nn.Module):
         """The query (0), key (1) or value (2) projection of x."""
         return getattr(self, self.names[i])(x)
 
+    def attend(self, inputs_q: torch.Tensor,
+               inputs_kv: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, Lq, D), (B, Lk, D) -> the heads (B, Lq, H * d), before the
+        output projection."""
+        inputs_kv = inputs_q if inputs_kv is None else inputs_kv
+        q, k, v = (self.project(i, x).unflatten(-1, (self.num_heads, -1))
+                   for i, x in enumerate((inputs_q, inputs_kv, inputs_kv)))
+        rate = self.dropout_rate if self.training else 0.0
+        return dot_product_attention(q, k, v, mask, rate).flatten(-2)
+
     def forward(self, inputs_q: torch.Tensor,
                 inputs_kv: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, Lq, D), (B, Lk, D) -> (B, Lq, D)."""
-        inputs_kv = inputs_q if inputs_kv is None else inputs_kv
-        q, k, v = (self.project(i, x).unflatten(-1, (self.num_heads, -1))
-                   for i, x in enumerate((inputs_q, inputs_kv, inputs_kv)))
-        out = dot_product_attention(q, k, v, mask)
-        return getattr(self, self.names[3])(out.flatten(-2))
+        return getattr(self, self.names[3])(self.attend(inputs_q, inputs_kv,
+                                                        mask))
 
 
 class SelfAttention(MultiHeadDotProductAttention):
@@ -412,3 +437,53 @@ class Food101FusionNet(nn.Module):
     def forward(self, x1: torch.Tensor, x2: torch.Tensor):
         text, image = self.model(x1, x2)
         return {"logits": [self.x1_model(text), self.x2_model(image)]}
+
+
+class LegacyImageTower(nn.Module):
+    """torchvision resnet50 without its fc (``features``, frozen: run
+    under ``torch.no_grad()``), the global average pool and a fresh
+    trainable ``fc``: (B, H, W, 3) -> (B, C)."""
+
+    def __init__(self, num_classes: int, stage_sizes: Sequence[int],
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.features = BottleneckResNetEncoder(3, tuple(stage_sizes),
+                                                dtype=dtype)
+        self.fc = TorchDense(self.features.out_features, num_classes, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            emb = global_avg_pool(self.features(x))
+        return self.fc(emb)
+
+
+class Food101LegacyFusionNet(nn.Module):
+    """Food101's legacy towers (food101/joint_model_proba_logits.py:30-90):
+    a frozen torchvision-resnet50 image tower with a fresh trainable
+    ``fc`` (``x1_model``) and a frozen BERT-base text tower with a
+    trainable [CLS] ``classifier`` (``x2_model``).  x1: (B, 224, 224, 3)
+    image; x2: (B, L) int bert-base-uncased token ids (pad 0): the
+    opposite modality order of the SigLIP family.
+
+    The frozen parts run under ``torch.no_grad()`` (the JAX package's
+    ``stop_gradient``); in train mode their BN still normalises with batch
+    statistics and updates its running statistics, and their dropouts
+    still draw: the reference never calls ``.eval()`` on them.  The
+    geometry shrinks for tests; the defaults are the real towers."""
+
+    def __init__(self, num_classes: int,
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 bert_layers: int = 12, bert_width: int = 768,
+                 bert_heads: int = 12, bert_vocab: int = 30522,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        from .bert import BertClassifier
+
+        self.x1_model = LegacyImageTower(num_classes, stage_sizes, dtype)
+        self.x2_model = BertClassifier(
+            num_classes, freeze_backbone=True, num_layers=bert_layers,
+            width=bert_width, heads=bert_heads, vocab_size=bert_vocab,
+            dtype=dtype)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor):
+        return {"logits": [self.x1_model(x1), self.x2_model(x2)]}

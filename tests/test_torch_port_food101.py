@@ -36,7 +36,8 @@ from multimodal_clinical_tpu_torch.models.jax_weights import (
     load_jax_variables,
 )
 from torch_port_benchmark_harness import (
-    SIGLIP_TINY, _args, gather_equal, narrow, run_pair, spec_equal_jax,
+    SIGLIP_TINY, _args, cli_argv, gather_equal, narrow, run_pair,
+    spec_equal_jax,
 )
 from torch_port_contract_harness import (
     check_eval, check_qmf_tables, check_state, check_train_metrics,
@@ -129,25 +130,45 @@ def test_unknown_model_type_raises():
 
 
 @pytest.mark.parametrize("model_type", food101.LEGACY_TYPES)
-def test_legacy_types_raise_naming_item_15b(tmp_path, model_type):
-    """jprobas and jprobas_jlogits (the frozen ResNet50 + BERT pair) raise
-    in the spec, the data and the CLI, naming ROADMAP item 15b."""
-    args = _args("food101", model_type, data_path=f"{tmp_path}/none")
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        food101.get_model_spec(args, n_train=4)
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        food101.get_data(args)
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        port_main.run_training(
-            ["--dir", "food101", "--set", f"model_type={model_type}",
-             "--set", f"data_path={tmp_path}/none"], device="cpu")
+def test_legacy_types_build_spec_data_and_run_the_cli(tmp_path, model_type):
+    """jprobas and jprobas_jlogits (the frozen ResNet50 + BERT pair) build
+    the JAX package's spec and data, and the CLI trains, validates,
+    checkpoints and tests them on the twin (narrowed through the config's
+    keys; parity in ``test_torch_port_food101_legacy*.py``)."""
+    args = _args("food101_legacy", model_type,
+                 data_path=f"{tmp_path}/none")
+    spec, _ = food101.get_model_spec(args, n_train=4)
+    assert type(spec.module).__name__ == "Food101LegacyFusionNet"
+    assert spec.contract == "jprobas" and spec.frozen_prefixes
+    data, jdata = food101.get_data(args), jax_food101.get_data(args)
+    gather_equal(data, jdata)
+    summary = port_main.run_training(
+        cli_argv("food101_legacy", tmp_path, model_type, "--set",
+                 "num_epochs=1"), device="cpu")
+    assert np.isfinite(summary["test_epoch/test_avg_acc"])
+    assert sorted(p.name for p in tmp_path.glob("*/ckpt/*")) == [
+        "best", "last-1", "meta.json"]
 
 
 @pytest.mark.parametrize("key", ["resnet50_weights", "bert_weights"])
-def test_legacy_weights_raise_naming_item_15b(key):
+def test_legacy_weights_under_siglip_types_raise_like_jax(key):
+    """``resnet50_weights``/``bert_weights`` apply to the legacy types
+    only: under qmf both packages raise the same ``ValueError`` before
+    reading the file."""
     args = _args("food101", "qmf", **{key: "/nonexistent"})
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        food101.load_pretrained(args, None)
+    with pytest.MonkeyPatch.context() as mp:
+        narrow("food101", mp)
+        spec, opt = food101.get_model_spec(args, n_train=4)
+        state = create_train_state(spec, args, seed=0, steps_per_epoch=4,
+                                   device="cpu", **opt)
+    with pytest.raises(ValueError, match="legacy jprobas/jprobas_jlogits "
+                       "variants only") as got:
+        food101.load_pretrained(args, state)
+    jstate = SimpleNamespace(params={"model": {}, "x1_model": {},
+                                     "x2_model": {}})
+    with pytest.raises(ValueError) as want:
+        jax_food101.load_pretrained(args, jstate)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("key,value", [("pipeline_stages", 2),

@@ -22,6 +22,12 @@ up in ``models/siglip.py`` when called, the port's when built, so both
 names are patched there) over 16 token ids and 32 x 32 pixels, with its
 heads' four dropouts injected.
 
+Food101's legacy pair (``food101_legacy``, the ``food101`` module's
+jprobas types) runs its ResNet50 and BERT narrowed through the config's
+own keys (``LEGACY_TINY``: stages (1, 1), two 32-wide BERT layers of 4
+heads over a 200-id vocabulary) over 32 x 32 images and 16 token ids,
+with BERT's dropouts, the attention weights' included, injected.
+
 Enrico and FakeNews (``fakenews`` for the token variants,
 ``fakenews_embed`` for the embed ones) run narrowed on both sides
 (``narrow``: ResNets at width 16 with one block a stage, the VGG stack at
@@ -32,7 +38,8 @@ Their dropout masks are injected: flax's ``jax.random.bernoulli`` (in
 source both return ``dropout_mask(i % n, shape)`` for the i-th dropout
 the forward reaches, n the net's dropout count, in the JAX (NHWC) layout
 (the JAX step traces once, so both steps draw the same masks on both
-sides).  A frozen tower's parameters get no gradient in the port.
+sides); flax's attention-weight dropout draws from ``jax.random`` in
+``flax.linen.attention``'s namespace, patched the same way.  A frozen tower's parameters get no gradient in the port.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import functools
 import importlib
 from types import SimpleNamespace
 
+import flax.linen.attention as flax_attention
 import flax.linen.stochastic as flax_stochastic
 
 import jax
@@ -110,14 +118,20 @@ BENCHMARKS = {
                  0),
     "fakenews_embed": (6, [(768,), (32, 32, 3), (768,)], 1e-2, 0),
     "food101": (101, [("ids", 16), (32, 32, 3)], 2e-2, 0),
+    "food101_legacy": (101, [(32, 32, 3), ("ids", 16)], 2e-2, 0),
 }
-MODULES = {"fakenews_embed": "fakenews"}
+MODULES = {"fakenews_embed": "fakenews", "food101_legacy": "food101"}
 # the narrowed VGG11Slim stack (an eighth of torchvision's widths)
 NARROW_VGG = (8, "M", 16, "M", 32, 32, "M", 64, 64, "M", 64, 64, "M")
 TEXT_VOCAB = 200
 # the narrowed SigLIP (tests/test_siglip_parity.py's _TINY)
 SIGLIP_TINY = dict(width=64, layers=2, heads=2, mlp_dim=128, patch=16,
                    image_size=32, text_len=16, vocab=1000)
+# the narrowed legacy towers, through the config's keys (the geometry of
+# tests/test_food101_legacy.py)
+LEGACY_TINY = dict(legacy_stages=(1, 1), legacy_bert_layers=2,
+                   legacy_bert_width=32, legacy_bert_heads=4,
+                   legacy_bert_vocab=TEXT_VOCAB, max_seq_len=16)
 
 
 # the narrowed ResNets' stem width
@@ -169,6 +183,8 @@ def narrow(bench, mp):
             mp.setattr(mod, "SigLIPModel", functools.partial(
                 mod.SigLIPModel, **SIGLIP_TINY))
         shapes = {"food101": [(16,), (32, 32, 3)]}
+    elif bench == "food101_legacy":
+        shapes = {"food101_legacy": [(32, 32, 3), (16,)]}
     elif bench == "fakenews_embed":
         for mod, enc in ((jax_zoo, JaxBottleneckEncoder),
                          (port_zoo, BottleneckResNetEncoder)):
@@ -226,6 +242,8 @@ def _args(bench: str, model_type: str, **overrides):
                 compute_dtype="float32", model_type=model_type)
     if bench == "fakenews_embed":
         args["embed_stage_sizes"] = (1, 1, 1, 1)
+    if bench == "food101_legacy":
+        args.update(LEGACY_TINY)
     return SimpleNamespace(**{**args, **overrides})
 
 
@@ -234,11 +252,22 @@ def dropout_mask(i: int, shape, keep_prob: float) -> np.ndarray:
     return np.random.default_rng(500 + i).random(shape) < keep_prob
 
 
-def patch_dropout(mp, n: int):
-    """flax's dropout draws and the port's train-step mask source, both
-    returning ``dropout_mask(i % n, ...)``; returns (the port's
-    ``make_train_step(dropout=...)`` argument, the draws of each side as
-    {"jax"|"port": [(shape, keep_prob), ...]})."""
+def count_dropouts(model) -> int:
+    """The dropouts ``model``'s train-mode forward draws: its ``Dropout``
+    modules and its attentions with a dropout rate."""
+    return sum(isinstance(m, Dropout)
+               or getattr(m, "dropout_rate", 0.0) > 0.0
+               for m in model.modules())
+
+
+def patch_dropout(mp, n: int, nchw: bool = True):
+    """flax's dropout draws (``nn.Dropout``'s and the attention weights')
+    and the port's train-step mask source, both returning
+    ``dropout_mask(i % n, ...)``; a 4-D port mask is an NCHW map when
+    ``nchw``, drawn as its NHWC twin (else, as BERT's (1, 1, L, L)
+    attention masks, in the same layout on both sides); returns (the
+    port's ``make_train_step(dropout=...)`` argument, the draws of each
+    side as {"jax"|"port": [(shape, keep_prob), ...]})."""
     drawn = {"jax": [], "port": []}
 
     def bernoulli(key, p=0.5, shape=None):
@@ -246,20 +275,22 @@ def patch_dropout(mp, n: int):
         drawn["jax"].append((tuple(shape), float(p)))
         return jnp.asarray(dropout_mask(i % n, tuple(shape), float(p)))
 
-    mp.setattr(flax_stochastic, "random", _Namespace(
-        jax.random, bernoulli=bernoulli))
+    for mod in (flax_stochastic, flax_attention):
+        mp.setattr(mod, "random", _Namespace(jax.random,
+                                             bernoulli=bernoulli))
+    permute = lambda shape: nchw and len(shape) == 4
 
     def per_step(state):
         count = [0]
 
         def source(shape, keep_prob, device):
-            nhwc = ((shape[0], *shape[2:], shape[1]) if len(shape) == 4
-                    else tuple(shape))
-            drawn["port"].append((nhwc, float(keep_prob)))
-            mask = torch.from_numpy(dropout_mask(count[0] % n, nhwc,
+            jshape = ((shape[0], *shape[2:], shape[1]) if permute(shape)
+                      else tuple(shape))
+            drawn["port"].append((jshape, float(keep_prob)))
+            mask = torch.from_numpy(dropout_mask(count[0] % n, jshape,
                                                  keep_prob))
             count[0] += 1
-            if len(shape) == 4:
+            if permute(shape):
                 mask = mask.permute(0, 3, 1, 2)
             return mask.to(device)
 
@@ -300,7 +331,9 @@ def _run_pair(bench: str, model_type: str, **arg_overrides):
                                device="cpu", **opt)
     load_jax_variables(state.model, params, stats)
     init = {k: v.clone() for k, v in state.model.state_dict().items()}
-    n_dropouts = sum(isinstance(m, Dropout) for m in state.model.modules())
+    n_dropouts = count_dropouts(state.model)
+    attention_dropout = any(getattr(m, "dropout_rate", 0.0) > 0.0
+                            for m in state.model.modules())
 
     calls = []
     with pytest.MonkeyPatch.context() as mp:
@@ -309,7 +342,8 @@ def _run_pair(bench: str, model_type: str, **arg_overrides):
             return jnp.zeros(shape, dtype)
 
         patch_ogm_normal(mp, normal)
-        dropout, dropped = patch_dropout(mp, max(n_dropouts, 1))
+        dropout, dropped = patch_dropout(mp, max(n_dropouts, 1),
+                                         nchw=not attention_dropout)
         jtrain, jeval = jax_make_train_step(jspec), jax_make_eval_step(jspec)
         train = make_train_step(spec, dropout=dropout)
         evaluate = make_eval_step(spec)
@@ -382,7 +416,10 @@ def gather_equal(got, want):
 # -- the CLI -------------------------------------------------------------------
 
 # the CLI settings that narrow a benchmark beyond ``narrow``
-CLI_SETS = {"fakenews_embed": ("--set", "embed_stage_sizes=[1, 1, 1, 1]")}
+CLI_SETS = {"fakenews_embed": ("--set", "embed_stage_sizes=[1, 1, 1, 1]"),
+            "food101_legacy": tuple(
+                a for k, v in LEGACY_TINY.items() for a in (
+                    "--set", f"{k}={list(v) if isinstance(v, tuple) else v}"))}
 
 
 def cli_argv(bench, root, model_type, *extra):
