@@ -189,7 +189,31 @@ Phases, each of which raises on failure:
    gather, ``python3 -m multimodal_clinical_tpu_torch --dir food101 --set
    model_type=jprobas_jlogits`` on them for two epochs, ``--resume`` for a
    third in process, jprobas for one epoch.  No TPU kernel lies on this
-   path: each must record 0 launches.
+   path: each must record 0 launches;
+21. the multi-seed sweep (``engine/multiseed.py``), vmap's per-sample
+   fallback warning an error throughout: (a) S = 3 seeds for two train
+   steps in fp32 (TF32 off) on per-seed data, the card's sweep against
+   the same sweep on the CPU and against three single-seed runs on the
+   card: losses, BN buffers, EMA and QMF tables; Crema-D's narrow net with
+   the stored-index pool under every contract, with and without the
+   BN-sums BN, MIMIC's nets under SGD and Adam, dropout heads on MIMIC's
+   inputs; each kernel launches once a call for the three seeds (a single
+   run's count for one seed), and the max-pool and BN-sums kernels are
+   held against their plain versions at the folded shapes; then at a
+   fresh process's settings, the launch counts set to 0 first and read
+   last: (b) at the config's geometry, two epochs on the twins: through
+   the CLI in process, MIMIC jlogits and ensemble with 20 seeds and
+   AV-MNIST jlogits with 8; through the CLI's ``run_multiseed`` with a
+   substituted benchmark module, Crema-D ogm_ge with 4 and the
+   stored-index pool (two launches of each max-pool kernel a step for all
+   seeds, both kernels then held against their plain versions at the
+   shapes that run recorded), and VGGSound jprobas with 2 on phase 12's
+   waveform rows (one log-STFT launch a train and an eval step for both
+   seeds, the kernel then held against its plain version on the folded
+   rows); (c) per sweep, the
+   step's median, the step per seed, the device's idle share and peak
+   memory beside the single-seed step that phases 7, 14 and 17b measured,
+   and ``seeds.csv`` read back.
 
 The CLI runs as a ``python3 -m`` subprocess once per family (phase 11 for
 VGGSound, Crema-D and AVE, 17c for the small nets, 20d for Food101), and
@@ -201,9 +225,10 @@ just after; launches made to compare or time a kernel do not count.  The
 kernels' line gives each kernel's launches on the main path as
 ``launches`` and on the later paths under ``launches_by_path`` (0 on
 AV-MNIST's, MIMIC's, MUsTARD's, Enrico's, FakeNews's, Food101's and the
-Food101 legacy pair's); the
-max-pool's entries list the shapes checked on the phase 14 path under
-``checked_shapes_by_path``.
+Food101 legacy pair's; ``multiseed`` for phase 21b's sweeps and
+``multiseed_narrow`` for 21a's card sweeps); the
+max-pool's entries list the shapes checked on the phase 14 path and on
+phase 21b's Crema-D sweep (``multiseed``) under ``checked_shapes_by_path``.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints no
@@ -1034,6 +1059,7 @@ def phase_main_path(device, card: str, kernels):
         device, card, "pallas",
         {"log_spectrogram": train_steps + EVAL_STEPS,
          "maxpool_fwd": 2 * train_steps, "maxpool_bwd": 2 * train_steps})
+    SINGLE_STEP_MS[("vggsound", "jprobas")] = default_ms
     log(f"[main] {card}: train step median, default {default_ms:.2f} ms, "
         f"pool_kernel='pallas' {switched_ms:.2f} ms")
     for entry in kernels:
@@ -1792,10 +1818,11 @@ CREMAD_CLIPS = 7442
 FULL_VALID = 60
 
 
-def _contract_batches(dev):
-    """Two narrow Crema-D batches: the first full, the second with a
-    padded tail (the last real row repeated, ``idx`` included)."""
-    rng = np.random.default_rng(0)
+def _contract_batches(dev, seed: int = 0):
+    """Two narrow Crema-D batches from numpy's ``seed`` generator: the
+    first full, the second with a padded tail (the last real row repeated,
+    ``idx`` included)."""
+    rng = np.random.default_rng(seed)
     ids = rng.permutation(CONTRACT_TABLE)
     out = []
     for step, real in enumerate((CONTRACT_ROWS, CONTRACT_VALID)):
@@ -2095,11 +2122,12 @@ def phase_full_width(device, card: str, kernels):
             # OGM-GE's walk over the 4-D parameters of the switched towers:
             # two stem max-pools each way per train step, none in eval
             with _recording_calls() as calls:
-                _, launches = _drive_model_type(
+                step_ms, launches = _drive_model_type(
                     device, card, bench, "ogm_ge", batches,
                     expected={"maxpool_fwd": 2 * train_steps,
                               "maxpool_bwd": 2 * train_steps},
                     pool_kernel="pallas")
+            SINGLE_STEP_MS[("cremad", "ogm_ge")] = step_ms
             for name in ("maxpool_fwd", "maxpool_bwd"):
                 by_path[name]["cremad_ogm_ge_pallas"] = launches[name]
             pool_shapes["cremad_ogm_ge_pallas"] = _check_path_pools(
@@ -2654,13 +2682,14 @@ SMALL_FILES = {"avmnist": (55000 + 320, 320), "mimic": 4096,
                "mustard": (256, 64, 64)}
 
 
-def _small_batches(bench: str, dev, rows: int, valid, table: int):
+def _small_batches(bench: str, dev, rows: int, valid, table: int,
+                   seed: int = 0):
     """Train batches of ``rows`` at ``bench``'s per-sample geometry from
-    numpy's seed-0 generator, one per entry of ``valid`` (its count of real
-    rows; the rest repeat the last real one, ``idx`` included), with
+    numpy's ``seed`` generator, one per entry of ``valid`` (its count of
+    real rows; the rest repeat the last real one, ``idx`` included), with
     distinct ``idx`` below ``table``."""
     classes, shapes = SMALL_BENCHES[bench]
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     ids = rng.permutation(table)
     out = []
     for step, real in enumerate(valid):
@@ -2968,6 +2997,7 @@ def _drive_small_type(device, card: str, bench: str, model_type: str):
         f"{idle:.3f} of the median step; warm-up loss {losses[0]:.5f}, eval "
         f"loss {float(out['loss']):.5f}"
         + (" (History written at the real idx only)" if tables else ""))
+    SINGLE_STEP_MS[(bench, model_type)] = median
     return median
 
 
@@ -4289,6 +4319,528 @@ def phase_food101_legacy(device, card: str, kernels):
     log(f"[legacy] phase 20 took {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 21: the multi-seed sweep ------------------------------------------
+
+# 21a: S seeds on the card against the same sweep on the CPU and against S
+# single-seed runs on the card, fp32 with TF32 off, two train steps (the
+# second with a padded tail) on per-seed data.  Crema-D's narrow net (width
+# 8, one block a stage, the stored-index stem pool; with and without the
+# BN-sums BN) under every contract, seed s on numpy's seed 3 + 10 s data
+# (phase 13's batches; tests/test_torch_port_multiseed_step.py holds the
+# same geometry on the CPU); MIMIC's nets under SGD and Adam; the
+# reference's dropout heads (``HeadMLP``) on MIMIC's inputs, MIMIC's own
+# nets having no dropout.  OGM-GE noise and dropout masks are drawn on the
+# CPU per (seed, step) and given to both devices.  The quantities held are
+# those of phase 13's fp32 comparison: losses, BN buffers, EMA and QMF
+# tables, to its limits (two fp32 sums of the same terms in another
+# order), the buffers to SWEEP_BUFFER_TOL
+SWEEP_SEEDS = (0, 1, 2)
+SWEEP_CONTRACTS = ("jlogits", "jprobas", "ensemble", "ogm_ge", "qmf")
+SWEEP_SMALL = (("mimic", "jlogits"), ("mimic", "jprobas"),
+               ("heads", "jlogits"), ("heads", "qmf"))
+SWEEP_DATA_SEED = 3
+# BN buffers after the second step carry the first update's fp32 gradient
+# rounding (phase 6: updates are not compared in fp32), which train-mode BN
+# over layer4's few values per channel amplifies: each stacked buffer is
+# held to this share of its largest entry
+SWEEP_BUFFER_TOL = 1e-4
+# 21b: (benchmark, model type, seeds) at the config's geometry through the
+# CLI in process, two epochs on the twins (VGGSound on waveforms, as phase
+# 12); then, on the last batch and state of each, SWEEP_TIMED timed steps
+# after a warm-up and one profiled step
+SWEEP_RUNS = (("mimic", "jlogits", 20), ("mimic", "ensemble", 20),
+              ("avmnist", "jlogits", 8), ("cremad", "ogm_ge", 4),
+              ("vggsound", "jprobas", 2))
+SWEEP_TIMED = 3
+SWEEP_DIR = WORK_DIR / "multiseed"
+# the single-seed train step's median in ms by (benchmark, model type), as
+# phases 7 (VGGSound jprobas), 14 (Crema-D ogm_ge with the stored-index
+# pool) and 17b (AV-MNIST and MIMIC) measured it in this run
+SINGLE_STEP_MS = {}
+
+
+class _DropoutHeads(torch.nn.Module):
+    """The reference's dropout head (``models/mlp.py::HeadMLP``: Linear,
+    ReLU, Dropout(0.2), Linear, ReLU, Dropout(0.2), Linear) on each of
+    MIMIC's two inputs."""
+
+    def __init__(self, classes: int):
+        from multimodal_clinical_tpu_torch.models.mlp import HeadMLP
+
+        super().__init__()
+        self.x1_model = HeadMLP(classes, 5, hidden_dim=16)
+        self.x2_model = HeadMLP(classes, 24 * 12, hidden_dim=16)
+
+    def forward(self, x1, x2):
+        return {"logits": [self.x1_model(x1), self.x2_model(x2.flatten(1))]}
+
+
+def _sweep_case(bench: str, model_type: str, bn_fused: bool = False):
+    """(spec, args, optimizer arguments) of a 21a case, its net fresh."""
+    import dataclasses
+    import functools
+    import importlib
+
+    from multimodal_clinical_tpu_torch.models import zoo
+
+    args = SimpleNamespace(num_classes=6, batch_size=CONTRACT_ROWS,
+                           learning_rate=1e-2, num_epochs=60,
+                           use_scheduler=False, seed=0, model_type=model_type,
+                           alpha=0.8, grad_mod_type="OGM_GE")
+    module = importlib.import_module(
+        "multimodal_clinical_tpu_torch.benchmarks."
+        + ("cremad" if bench == "cremad" else "mimic"))
+    spec, opt = module.get_model_spec(args, n_train=CONTRACT_TABLE)
+    if bench == "cremad":
+        encoder = zoo.ResNetEncoder
+        zoo.ResNetEncoder = functools.partial(
+            encoder, stage_sizes=(1, 1, 1, 1), bn_fused=bn_fused)
+        try:
+            net = zoo.CremadFusionNet(6, width=8, pool_kernel="pallas")
+        finally:
+            zoo.ResNetEncoder = encoder
+        spec = dataclasses.replace(spec, module=net)
+    elif bench == "heads":
+        spec = dataclasses.replace(spec, module=_DropoutHeads(6))
+    return spec, args, opt
+
+
+def _sweep_batches(bench: str, dev, seed_pos: int):
+    seed = SWEEP_DATA_SEED + 10 * seed_pos
+    if bench == "cremad":
+        return _contract_batches(dev, seed)
+    return _small_batches("mimic", dev, CONTRACT_ROWS,
+                          (CONTRACT_ROWS, CONTRACT_VALID), CONTRACT_TABLE,
+                          seed)
+
+
+def _sweep_noise(spec):
+    """Per seed, one standard-normal CPU draw per conv weight of the net,
+    by name (the same OGM-GE noise on both devices and in both steps)."""
+    from multimodal_clinical_tpu_torch.algos.ogm_ge import (
+        modulated_parameters,
+    )
+
+    out = {}
+    for seed in SWEEP_SEEDS:
+        gen = torch.Generator().manual_seed(100 + seed)
+        out[seed] = {name: torch.randn(p.shape, generator=gen)
+                     for _, name, p in modulated_parameters(spec.module)}
+    return out
+
+
+def _cpu_dropout(seed: int, step: int):
+    """A mask source drawing on the CPU from (seed, step), moved to the
+    activation's device: the same masks on the card and on the CPU."""
+    from multimodal_clinical_tpu_torch.engine.state import mixed_seed
+
+    gen = torch.Generator().manual_seed(mixed_seed(seed, step, stream=2))
+    return lambda shape, keep_prob, device: (
+        torch.rand(shape, generator=gen) < keep_prob).to(device)
+
+
+def _sweep_result(losses, buffers, ema, tables):
+    cpu = lambda t: t.detach().cpu().clone()
+    return dict(losses=np.asarray(losses), buffers={
+        k: cpu(v) for k, v in buffers.items()}, ema=cpu(ema),
+        tables=None if tables[0] is None else tuple(cpu(t) for t in tables))
+
+
+def _sweep_narrow(dev, bench: str, model_type: str, bn_fused: bool = False):
+    """Two sweep steps of a 21a case on ``dev``: losses (steps, S), the
+    stacked BN buffers, EMA and QMF tables on the CPU."""
+    from multimodal_clinical_tpu_torch.engine.multiseed import (
+        create_multiseed_state, make_multiseed_steps,
+    )
+
+    spec, args, opt = _sweep_case(bench, model_type, bn_fused)
+    noise = _sweep_noise(spec)
+    state = create_multiseed_state(spec, args, SWEEP_SEEDS, 100, device=dev,
+                                   opt_kwargs=opt)
+    step, _ = make_multiseed_steps(
+        spec, ogm_noise=lambda seed, _: (
+            lambda name, g: noise[seed][name].to(g.device)),
+        dropout=_cpu_dropout)
+    per_seed = [_sweep_batches(bench, dev, s)
+                for s in range(len(SWEEP_SEEDS))]
+    losses = []
+    for i in range(2):
+        state, metrics = step(state, {
+            k: torch.stack([b[i][k] for b in per_seed])
+            for k in per_seed[0][i]})
+        losses.append(metrics["train_loss"].cpu().numpy())
+    return _sweep_result(losses, state.buffers, state.ema,
+                         (state.qmf_correctness, state.qmf_confidence))
+
+
+def _singles_narrow(dev, bench: str, model_type: str, bn_fused: bool = False):
+    """The same two steps as S single-seed runs on ``dev``, stacked as
+    ``_sweep_narrow`` returns them."""
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+    from multimodal_clinical_tpu_torch.engine.steps import make_train_step
+
+    runs = []
+    for s, seed in enumerate(SWEEP_SEEDS):
+        spec, args, opt = _sweep_case(bench, model_type, bn_fused)
+        noise = _sweep_noise(spec)[seed]
+        state = create_train_state(spec, args, seed, 100, device=dev, **opt)
+        step = make_train_step(
+            spec, ogm_noise=lambda _: (
+                lambda name, g: noise[name].to(g.device)),
+            dropout=lambda st: _cpu_dropout(st.seed, st.step))
+        losses = []
+        for batch in _sweep_batches(bench, dev, s):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["train_loss"]))
+        runs.append(_sweep_result(
+            losses, dict(state.model.named_buffers()), state.ema,
+            (state.qmf_correctness, state.qmf_confidence)))
+    stack = lambda ts: torch.stack(list(ts))
+    return dict(
+        losses=np.stack([r["losses"] for r in runs], axis=1),
+        buffers={k: stack(r["buffers"][k] for r in runs)
+                 for k in runs[0]["buffers"]},
+        ema=stack(r["ema"] for r in runs),
+        tables=None if runs[0]["tables"] is None else tuple(
+            stack(r["tables"][i] for r in runs) for i in range(2)))
+
+
+def _compare_sweeps(got, want, what: str) -> str:
+    """Losses, EMA and QMF tables to phase 13's fp32 limits, BN buffers to
+    SWEEP_BUFFER_TOL; returns the largest differences."""
+    np.testing.assert_allclose(got["losses"], want["losses"],
+                               rtol=CPU_LOSS_RTOL, err_msg=what)
+    worst = 0.0
+    for key, ref in want["buffers"].items():
+        err = _scaled_err(got["buffers"][key], ref)
+        if not err <= SWEEP_BUFFER_TOL:
+            raise AssertionError(f"{what} {key}: {err:.3e} of its largest "
+                                 "entry apart")
+        worst = max(worst, err)
+    np.testing.assert_allclose(got["ema"].numpy(), want["ema"].numpy(),
+                               rtol=0, atol=CPU_EMA_ATOL, err_msg=what)
+    tables = ""
+    if want["tables"] is not None:
+        for got_t, ref in zip(got["tables"], want["tables"]):
+            np.testing.assert_allclose(got_t.numpy(), ref.numpy(),
+                                       rtol=CPU_TABLE_RTOL,
+                                       atol=CPU_TABLE_ATOL, err_msg=what)
+        tables = (f", tables within "
+                  f"{_scaled_err(got['tables'][0], want['tables'][0]):.2e}")
+    loss_gap = float(np.max(np.abs(got["losses"] - want["losses"])
+                            / np.abs(want["losses"])))
+    return (f"losses within {loss_gap:.2e}, BN buffers within {worst:.2e}"
+            + tables)
+
+
+def phase_multiseed_card_against_cpu(device):
+    """Phase 21a: returns the BN-sums and max-pool launches of the card's
+    sweeps (one launch per call for the S seeds: a single-seed run's count
+    for one seed)."""
+    cpu = torch.device("cpu")
+    launchers = _switch_launchers()
+    total = collections.Counter()
+    cases = ([("cremad", t, fused) for fused in (False, True)
+              for t in SWEEP_CONTRACTS]
+             + [(b, t, False) for b, t in SWEEP_SMALL])
+    with _torch_set(False, False, 2):
+        for bench, model_type, fused in cases:
+            what = (f"{bench} {model_type}"
+                    + (" bn_fused" if fused else "")
+                    + (" pool_kernel='pallas'" if bench == "cremad" else ""))
+            for fn in launchers.values():
+                fn.launches = 0
+            with _recording_calls() as calls:
+                card = _sweep_narrow(device, bench, model_type, fused)
+            # while recording, each launch counts on its recording wrapper
+            sweep_launches = {n: len(c) for n, c in calls.items()}
+            for fn in launchers.values():
+                fn.launches = 0
+            singles = _singles_narrow(device, bench, model_type, fused)
+            single_launches = {n: fn.launches for n, fn in launchers.items()}
+            host = _sweep_narrow(cpu, bench, model_type, fused)
+            against_cpu = _compare_sweeps(card, host, f"{what} card vs CPU")
+            against_singles = _compare_sweeps(card, singles,
+                                              f"{what} sweep vs singles")
+            # one launch a call for S seeds; S single runs make S
+            for name, count in sweep_launches.items():
+                if count * len(SWEEP_SEEDS) != single_launches[name] or (
+                        bench == "cremad" and name.startswith("maxpool")
+                        and not count) or (fused and not count):
+                    raise AssertionError(
+                        f"{what}: the sweep launched {sweep_launches}, the "
+                        f"single runs {single_launches}")
+            total.update(sweep_launches)
+            if bench == "cremad":
+                _check_path_pools(calls, f"21a {what}")
+            for m, c in sorted(set(calls["bn_sums"])):
+                _check_bn(*_bn_case(m, c, torch.float32, 5),
+                          f"21a {what} ({m}, {c})")
+            log(f"[multiseed] 21a {what}, S = {len(SWEEP_SEEDS)}: card "
+                f"against CPU {against_cpu}; card sweep against "
+                f"{len(SWEEP_SEEDS)} single-seed runs {against_singles}; "
+                f"launches {dict(sweep_launches)} (single runs "
+                f"{dict(single_launches)})"
+                + (f"; BN sums at the folded shapes "
+                   f"{sorted(set(calls['bn_sums']))} held" if fused else ""))
+    return total
+
+
+def _sweep_profiled_step(train_step, state, batch):
+    """One sweep step under ``torch.profiler``: (its wall ms, the device's
+    busy ms as the union of its kernels' intervals, their summed ms, the
+    summed ms by kernel family).  The sweep's kernels may overlap (the
+    summed time passed the wall time on Crema-D), so busy is the union, not
+    ``_profiled_step``'s sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_clinical_tpu_torch.benchmarks.profile_vggsound import (
+        family_times, kernel_times,
+    )
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for start, stop in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    summed = sum(stop - start for start, stop in spans)
+    if not 0 < busy / 1e3 <= wall:
+        raise AssertionError(f"device busy {busy / 1e3:.3f} ms in {wall:.3f} "
+                             "ms: the trace's kernel times are wrong")
+    families = {k: v / 1e3 for k, v in
+                family_times(kernel_times(prof)).items()}
+    return wall, busy / 1e3, summed / 1e3, families
+
+
+def _check_folded_spectrogram(wave: torch.Tensor) -> None:
+    """The log-STFT kernel against its plain version on a superbatch's
+    (S, B, samples) waveforms, folded to (S * B, samples) as the sweep's
+    preprocess gives them."""
+    from multimodal_clinical_tpu_torch.ops import cuda_spectrogram as cs
+    from multimodal_clinical_tpu_torch.ops import spectrogram as plain
+
+    wave = wave.flatten(0, 1)
+    max_err, clear_err = compare_spectrogram(
+        cs.launch_log_spectrogram(wave, 256, 128),
+        plain.log_spectrogram(wave, 256, 128))
+    log(f"[kernels] log_spectrogram on the sweep's folded waveforms "
+        f"{tuple(wave.shape)}: max |log err| {max_err:.3e}, in clear bins "
+        f"{clear_err:.3e}")
+
+
+@contextlib.contextmanager
+def _sweep_steps():
+    """While open, ``run_multiseed``'s steps count their calls and keep the
+    last train call's (step, state, batch)."""
+    from multimodal_clinical_tpu_torch.engine import multiseed
+
+    real = multiseed.make_multiseed_steps
+    seen = {"train": 0, "eval": 0}
+
+    def make(spec, *args, **kwargs):
+        train, evaluate = real(spec, *args, **kwargs)
+
+        def train_step(state, batch):
+            seen["train"] += 1
+            seen["last"] = (train, state, batch)
+            return train(state, batch)
+
+        def eval_step(state, batch):
+            seen["eval"] += 1
+            return evaluate(state, batch)
+
+        return train_step, eval_step
+
+    multiseed.make_multiseed_steps = make
+    try:
+        yield seen
+    finally:
+        multiseed.make_multiseed_steps = real
+
+
+def _sweep_run(device, bench: str, model_type: str, seeds: int):
+    """One 21b sweep of the config's seeds ``seed .. seed + seeds - 1``:
+    (summary, seeds.csv rows, calls seen, the seeds)."""
+    import dataclasses
+
+    from multimodal_clinical_tpu_torch import __main__ as cli
+    from multimodal_clinical_tpu_torch.benchmarks import cremad, vggsound
+    from multimodal_clinical_tpu_torch.config import load_config
+    from multimodal_clinical_tpu_torch.engine.multiseed import run_multiseed
+    from multimodal_clinical_tpu_torch.models.zoo import CremadFusionNet
+
+    root = SWEEP_DIR / f"{bench}_{model_type}"
+    sets = dict(model_type=model_type, num_epochs=2, num_seeds=seeds,
+                ckpt_dir=str(root), data_path=f"{root}/none")
+    with _sweep_steps() as seen:
+        if bench in ("mimic", "avmnist"):
+            argv = ["--dir", bench]
+            for key, value in sets.items():
+                argv += ["--set", f"{key}={value}"]
+            summary = cli.run_training(argv, device=device)
+            group = load_config(bench).group_name
+        else:
+            # the stored-index pool (Crema-D) and waveform rows (VGGSound,
+            # phase 12's) take the CLI's own function with the benchmark's
+            # spec and data so changed
+            args = load_config(bench, overrides=sets)
+            group = args.group_name
+            if bench == "cremad":
+                module = SimpleNamespace(
+                    get_data=cremad.get_data,
+                    get_model_spec=lambda a, n_train: (lambda sk: (
+                        dataclasses.replace(sk[0], module=CremadFusionNet(
+                            int(a.num_classes),
+                            dtype=sk[0].module.x1_classifier.dtype,
+                            pool_kernel="pallas")), sk[1]))(
+                        cremad.get_model_spec(a, n_train)))
+            else:
+                bundle = _waveform_bundle(2 * BATCH, BATCH)
+                module = SimpleNamespace(
+                    get_data=lambda _: bundle,
+                    get_model_spec=vggsound.get_model_spec)
+            summary = run_multiseed(
+                args, module, list(range(args.seed, args.seed + seeds)),
+                device=device)
+    torch.cuda.synchronize()
+    rows = (root / group / "seeds.csv").read_text().splitlines()
+    first = int(load_config(bench).seed)
+    return summary, rows, seen, list(range(first, first + seeds))
+
+
+def phase_multiseed(device, card: str, kernels):
+    """Phase 21: the multi-seed sweep.  (a) narrow nets, card against CPU
+    and against single-seed runs; (b) each of SWEEP_RUNS through the CLI at
+    the config's geometry, its launch counts set to 0 first and read after;
+    (c) per sweep, the step time, the step per seed, the device's idle
+    share and peak memory beside the single-seed step of this run's phases
+    7, 14 and 17b, and seeds.csv.  vmap's per-sample fallback warning is an
+    error throughout."""
+    import warnings
+
+    t0 = time.perf_counter()
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error",
+                                    message="There is a performance drop")
+            narrow = phase_multiseed_card_against_cpu(device)
+            log(f"[multiseed] 21a took {time.perf_counter() - t0:.1f} s")
+            total, pool_shapes = _multiseed_runs(device, card)
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+        shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    for entry in kernels:
+        paths = entry.setdefault("launches_by_path", {})
+        paths["multiseed"] = total.get(entry["name"], 0)
+        if entry["name"] in narrow:
+            paths["multiseed_narrow"] = narrow[entry["name"]]
+        if entry["name"] in ("maxpool_fwd", "maxpool_bwd"):
+            entry.setdefault("checked_shapes_by_path", {})[
+                "multiseed"] = pool_shapes
+    log(f"[multiseed] launches of every TPU kernel on the sweeps: "
+        f"{dict(total)}; in 21a's card sweeps {dict(narrow)}; phase 21 took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _multiseed_runs(device, card: str):
+    """21b and 21c; returns the kernels' launches summed over the runs and
+    the max-pool shapes that the Crema-D sweep gave its kernels, at which
+    both were held against their plain versions."""
+    total = collections.Counter()
+    pool_shapes = []
+    with _torch_set(*TORCH_DEFAULTS):
+        for bench, model_type, seeds in SWEEP_RUNS:
+            t = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            with _recording_calls() as calls:
+                # while recording, each switched kernel's launches count
+                # on its recording wrapper, which _all_launchers gives here
+                launchers = _all_launchers()
+                for fn in launchers.values():
+                    fn.launches = 0
+                summary, rows, seen, seed_list = _sweep_run(
+                    device, bench, model_type, seeds)
+                launches = {n: fn.launches for n, fn in launchers.items()}
+            run_s = time.perf_counter() - t
+            expected = {}
+            if bench == "vggsound":
+                # one launch a train and an eval step, for every seed
+                expected["log_spectrogram"] = seen["train"] + seen["eval"]
+            if bench == "cremad":
+                # each tower's stem pool, forward and backward, a train step
+                expected["maxpool_fwd"] = expected["maxpool_bwd"] = (
+                    2 * seen["train"])
+            if launches != {n: expected.get(n, 0) for n in launches}:
+                raise AssertionError(f"{bench} {model_type} S={seeds}: "
+                                     f"launches {launches}, expected "
+                                     f"{expected}")
+            total.update(launches)
+            header, *body = [r.split(",") for r in rows]
+            if ([r[0] for r in body] != [str(s) for s in seed_list]
+                    + ["mean", "std"] or header[0] != "seed"
+                    or not all(math.isfinite(float(v))
+                               for r in body for v in r[1:])
+                    or not math.isfinite(summary["test_epoch/test_avg_loss"])):
+                raise AssertionError(f"{bench} {model_type}: seeds.csv "
+                                     f"{rows[:3]} ..., summary {summary}")
+            if bench == "cremad":
+                # both kernels at the folded shapes this sweep gave them
+                pool_shapes = _check_path_pools(
+                    calls, f"21b {bench} {model_type} S={seeds}")
+            train, state, batch = seen.pop("last")
+            if bench == "vggsound":
+                # the kernel against its plain version on the folded
+                # (S * B) waveform rows that its sweep launches took
+                _check_folded_spectrogram(batch["x1_waveform"])
+            step_ms = []
+            for i in range(1 + SWEEP_TIMED):
+                tic = time.perf_counter()
+                state, metrics = train(state, batch)
+                torch.cuda.synchronize()
+                if i:
+                    step_ms.append((time.perf_counter() - tic) * 1e3)
+            wall, busy, summed, families = _sweep_profiled_step(
+                train, state, batch)
+            top = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                families.items(), key=lambda kv: -kv[1])[:5])
+            median = statistics.median(step_ms)
+            idle = 1 - busy / median
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            rows_b = int(batch["label"].shape[1])
+            single = SINGLE_STEP_MS.get((bench, model_type))
+            phase = {"vggsound": 7, "cremad": 14}.get(bench, "17b")
+            beside = ("the single-seed step not measured in this run"
+                      if single is None else
+                      f"the single-seed step {single:.3f} ms (phase {phase} "
+                      f"of this run), {seeds} of them {seeds * single:.3f} ms")
+            log(f"[multiseed] 21c {card}: {bench} {model_type}, S = {seeds} "
+                f"at batch {rows_b}: train step median {median:.3f} ms over "
+                f"{SWEEP_TIMED} ({min(step_ms):.3f}-{max(step_ms):.3f}), "
+                f"{median / seeds:.3f} ms a seed; {beside}; one profiled step "
+                f"{wall:.3f} ms, device busy {busy:.3f} ms (kernels summed "
+                f"{summed:.3f} ms: {top}), idle share "
+                f"{idle:.3f} of the median step; peak memory {peak:.2f} GiB; "
+                f"run of {seen['train']} train and {seen['eval']} eval "
+                f"steps {run_s:.1f} s; launches {launches}; test_avg_acc "
+                f"{summary['test_epoch/test_avg_acc']:.4f} ± "
+                f"{summary['test_epoch/test_avg_acc_std']:.4f}")
+            log(f"[multiseed] 21c {bench} {model_type} seeds.csv: "
+                f"{' | '.join(rows[:2] + rows[-2:])}")
+            del train, state, batch, seen
+            torch.cuda.empty_cache()
+    return total, pool_shapes
+
+
 @contextlib.contextmanager
 def _phase_time(name: str, seconds: dict):
     """Adds the block's wall seconds to ``seconds[name]`` and logs them."""
@@ -4350,6 +4902,8 @@ def main() -> int:
         phase_food101(device, card, kernels)
     with _phase_time("20", seconds):
         phase_food101_legacy(device, card, kernels)
+    with _phase_time("21", seconds):
+        phase_multiseed(device, card, kernels)
     log(f"[time] every phase, wall s: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
         f"the script so far {time.perf_counter() - t0:.1f} s")
     missing = [e["name"] for e in kernels if not e["launches"]]
@@ -4359,6 +4913,12 @@ def main() -> int:
             raise AssertionError(f"a kernel lacks its {path}: 0 launches")
     if missing:
         raise AssertionError(f"kernels not launched on their path: {missing}")
+    sweep = {e["name"]: e["launches_by_path"] for e in kernels}
+    if not all(sweep[n]["multiseed"] for n in (
+            "log_spectrogram", "maxpool_fwd", "maxpool_bwd")) or not all(
+            sweep[n].get("multiseed_narrow") for n in (
+                "bn_sums", "bn_bwd_sums", "maxpool_fwd", "maxpool_bwd")):
+        raise AssertionError("a kernel of the sweep did not launch there")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

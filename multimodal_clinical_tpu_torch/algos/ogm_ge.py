@@ -26,7 +26,7 @@ resumed run draws the same noise.
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -117,21 +117,57 @@ def modulate_gradients(
 ) -> None:
     """Modulate, in place, the ``.grad`` of the conv weights of the
     encoders named by ``encoder_keys``; call between ``loss.backward()``
-    and ``optimizer.step()``."""
+    and ``optimizer.step()``.  The one-seed case of
+    ``modulate_stacked_gradients``."""
+    _check_mode(modulation, noise)
+    coeffs = ogm_coefficients(x1_logits.detach(), x2_logits.detach(), label,
+                              alpha, valid)
+    grads = {name: param.grad[None]
+             for _, name, param in modulated_parameters(model, encoder_keys)
+             if param.grad is not None}
+    modulate_stacked_gradients(
+        model, grads, tuple(c[None] for c in coeffs),
+        None if noise is None else [noise], modulation, encoder_keys)
+
+
+def _check_mode(modulation: str, noise) -> None:
     if modulation not in MODULATION_MODES:
         raise ValueError(f"modulation must be one of {MODULATION_MODES}")
     if modulation != "OGM" and noise is None:
         raise ValueError(f"modulation {modulation!r} needs a noise source")
-    coeffs = ogm_coefficients(x1_logits.detach(), x2_logits.detach(), label,
-                              alpha, valid)
-    for i, name, param in modulated_parameters(model, encoder_keys):
-        g = param.grad
+
+
+@torch.no_grad()
+def modulate_stacked_gradients(
+    model: nn.Module,
+    grads: Dict[str, torch.Tensor],
+    coeffs: Tuple[torch.Tensor, torch.Tensor],
+    noises: Optional[Sequence[NoiseSource]],
+    modulation: str = "OGM_GE",
+    encoder_keys: Sequence[str] = DEFAULT_ENCODER_KEYS,
+) -> None:
+    """Modulate, in place, S seeds' gradients of ``model``'s conv weights
+    at once: ``grads`` maps a parameter name to its (S, ...) gradient (the
+    multi-seed sweep's stacked leaves), ``coeffs`` holds the (S,)
+    coefficients of ``ogm_coefficients`` taken per seed, and ``noises``
+    one noise source a seed.  Seed s's slice gets its coefficient and its
+    noise, drawn in ``modulated_parameters`` order and scaled by the std
+    of that slice alone."""
+    _check_mode(modulation, noises)
+    for i, name, _ in modulated_parameters(model, encoder_keys):
+        g = grads.get(name)
         if g is None:
             continue
+        seeds = g.shape[0]
+        per_seed = (seeds,) + (1,) * (g.dim() - 1)
         new = g.float()
         if modulation != "noise":
-            new = new * coeffs[i]
+            new = new * coeffs[i].view(per_seed)
         if modulation != "OGM":
-            std = new.new_zeros(()) if g.numel() <= 1 else g.float().std()
-            new = new + noise(name, g) * (std + 1e-8)
+            flat = g.flatten(1).float()
+            std = (flat.std(1) if flat.shape[1] > 1
+                   else flat.new_zeros(seeds))
+            noise = torch.stack([draw(name, g[s])
+                                 for s, draw in enumerate(noises)])
+            new = new + noise * (std + 1e-8).view(per_seed)
         g.copy_(new)

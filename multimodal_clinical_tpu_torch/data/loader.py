@@ -67,10 +67,8 @@ class Loader:
                  transfer_dtype: Optional[torch.dtype] = None,
                  device="cuda"):
         warm_heap()  # batch assembly is first-touch-bound otherwise
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            # the producer thread sets the device by its index
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self._copy = DeviceCopy(device)
+        self.device = self._copy.device
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.sampler = sampler
@@ -83,8 +81,6 @@ class Loader:
         if self.workers > 1:
             self._pool = ThreadPoolExecutor(max_workers=self.workers,
                                             thread_name_prefix="loader")
-        self._copy_stream = (torch.cuda.Stream(self.device)
-                             if self.device.type == "cuda" else None)
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = int(epoch)
@@ -134,20 +130,38 @@ class Loader:
             batch = _pad_batch(self._gather(chunk), idx_padded, bs, valid_n)
             yield {k: self._host_tensor(k, v) for k, v in batch.items()}
 
-    # -- device side ---------------------------------------------------
-    def _put(self, batch: Batch):
+    def __iter__(self):
+        return prefetched_iter(self._host_batches(), self._copy.put,
+                               self.prefetch, take=self._copy.take)
+
+
+class DeviceCopy:
+    """Host batches to ``device``: ``put`` on the producer's thread, ``take``
+    on the consumer's (``prefetched_iter``).  On a CUDA device the copy
+    runs on a side stream and the consumer's stream waits for it."""
+
+    def __init__(self, device="cuda"):
+        device = resolve_device(device)
+        if device.type == "cuda" and device.index is None:
+            # the producer thread sets the device by its index
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self._stream = (torch.cuda.Stream(device)
+                        if device.type == "cuda" else None)
+
+    def put(self, batch: Batch):
         """Producer side: (device batch, copy-done event or None)."""
-        if self._copy_stream is None:
+        if self._stream is None:
             return {k: v.to(self.device) for k, v in batch.items()}, None
         torch.cuda.set_device(self.device)
-        with torch.cuda.stream(self._copy_stream):
+        with torch.cuda.stream(self._stream):
             out = {k: v.pin_memory().to(self.device, non_blocking=True)
                    for k, v in batch.items()}
             ready = torch.cuda.Event()
-            ready.record(self._copy_stream)
+            ready.record(self._stream)
         return out, ready
 
-    def _take(self, item) -> Batch:
+    def take(self, item) -> Batch:
         """Consumer side: order the consumer's stream after the copy."""
         batch, ready = item
         if ready is not None:
@@ -156,10 +170,6 @@ class Loader:
             for t in batch.values():
                 t.record_stream(stream)
         return batch
-
-    def __iter__(self):
-        return prefetched_iter(self._host_batches(), self._put,
-                               self.prefetch, take=self._take)
 
 
 def prefetched_iter(host_batches, put: Callable, prefetch: int,

@@ -3,7 +3,8 @@
 
 Resolve the device, construct loaders with the dataset's sampler policy,
 initialise the TrainState on the device, fit with best-checkpointing, and
-test (utils/run_trainer.py:6-70).  One device, one process: the JAX
+test (utils/run_trainer.py:6-70).  One seed on one device; S seeds train
+together in one process through ``engine/multiseed.py``.  The JAX
 package's mesh, FSDP, pipeline and multi-host settings come with the
 port's ``parallel/`` (ROADMAP.md queue A, item 18) and raise until then.
 """

@@ -40,18 +40,20 @@ def make_lr_schedule(base_lr: float, use_scheduler: bool, steps_per_epoch: int,
     return schedule
 
 
-def decay_groups(model: nn.Module, frozen_prefixes: Sequence[str] = ()
-                 ) -> List[Dict]:
-    """``model``'s parameters as optimizer groups: those under a prefix of
-    ``frozen_prefixes`` (module paths, matched as the JAX package matches
-    its '/'-joined ones: by ``startswith``) in a second group without
-    weight decay.  A frozen tower detaches its output, so its parameters
-    get no gradient and torch's SGD skips them; the group keeps weight
-    decay off them all the same, as the JAX package's mask does, so a
-    frozen leaf stays bit-unchanged with a zero momentum even where a
-    gradient of zeros reaches it."""
+def decay_groups(model, frozen_prefixes: Sequence[str] = ()) -> List[Dict]:
+    """``model``'s parameters (a module, or a dict of tensors by parameter
+    name: the multi-seed sweep's stacked leaves) as optimizer groups:
+    those under a prefix of ``frozen_prefixes`` (module paths, matched as
+    the JAX package matches its '/'-joined ones: by ``startswith``) in a
+    second group without weight decay.  A frozen tower detaches its
+    output, so its parameters get no gradient and torch's SGD skips them;
+    the group keeps weight decay off them all the same, as the JAX
+    package's mask does, so a frozen leaf stays bit-unchanged with a zero
+    momentum even where a gradient of zeros reaches it."""
     decayed, frozen = [], []
-    for name, param in model.named_parameters():
+    named = (model.items() if isinstance(model, dict)
+             else model.named_parameters())
+    for name, param in named:
         (frozen if any(name.startswith(p) for p in frozen_prefixes)
          else decayed).append(param)
     groups = [{"params": decayed}]
@@ -125,6 +127,19 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(mixed_seed(seed, step))
 
 
+def spec_lr_schedule(spec: ModelSpec, args: Any, steps_per_epoch: int,
+                     lr_override: Optional[float] = None
+                     ) -> Callable[[int], float]:
+    """The run's schedule from the config and the spec's StepLR settings;
+    ``lr_override`` pins the base rate (see ``create_train_state``)."""
+    base_lr = float(args.learning_rate if lr_override is None
+                    else lr_override)
+    return make_lr_schedule(
+        base_lr, bool(getattr(args, "use_scheduler", False)),
+        steps_per_epoch, spec.sched_step_size, spec.sched_gamma,
+        int(getattr(args, "num_epochs", 1)))
+
+
 def create_train_state(spec: ModelSpec, args: Any, seed: int,
                        steps_per_epoch: int, device="cuda",
                        momentum: float = 0.9,
@@ -141,12 +156,7 @@ def create_train_state(spec: ModelSpec, args: Any, seed: int,
     device = resolve_device(device)
     model = init_weights(spec.module, torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last)
-    base_lr = float(args.learning_rate if lr_override is None
-                    else lr_override)
-    schedule = make_lr_schedule(
-        base_lr, bool(getattr(args, "use_scheduler", False)),
-        steps_per_epoch, spec.sched_step_size, spec.sched_gamma,
-        int(getattr(args, "num_epochs", 1)))
+    schedule = spec_lr_schedule(spec, args, steps_per_epoch, lr_override)
     opt = make_optimizer(decay_groups(model, spec.frozen_prefixes),
                          schedule(0), momentum, weight_decay, optimizer)
     ema = torch.zeros(spec.num_modality, int(args.num_classes),

@@ -34,6 +34,13 @@ def _model_inputs(batch: Batch, spec: ModelSpec):
     return [batch[f"x{i + 1}"] for i in range(n)]
 
 
+def history_of(state) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The QMF (correctness, confidence) tables of ``state``, or None."""
+    if state.qmf_correctness is None:
+        return None
+    return state.qmf_correctness, state.qmf_confidence
+
+
 def _per_sample_ce(logits, label):
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, label[:, None].long())[:, 0]
@@ -68,9 +75,10 @@ def _qmf_terms(spec: ModelSpec, logits, label, valid, idx, corr_tab,
     return logits_df, loss_joint, loss_uni, loss_reg, new_corr, new_conf
 
 
-def _train_loss(spec: ModelSpec, state: TrainState, batch: Batch, out,
+def _train_loss(spec: ModelSpec, history, batch: Batch, out,
                 aux: Dict[str, Any]) -> torch.Tensor:
-    """The contract's training loss; fills ``aux`` with reporting tensors."""
+    """The contract's training loss; fills ``aux`` with reporting tensors.
+    ``history``: the QMF (correctness, confidence) tables, or None."""
     logits = out["logits"]
     label, valid = batch["label"], batch["valid"]
 
@@ -111,8 +119,7 @@ def _train_loss(spec: ModelSpec, state: TrainState, batch: Batch, out,
             aux.update(report=logits, fused=fused, logits_df=logits_df)
             return C.cross_entropy(fused, label, valid)
         logits_df, loss_joint, loss_uni, loss_reg, new_corr, new_conf = (
-            _qmf_terms(spec, logits, label, valid, batch["idx"],
-                       state.qmf_correctness, state.qmf_confidence))
+            _qmf_terms(spec, logits, label, valid, batch["idx"], *history))
         loss = loss_reg
         if not spec.qmf_drop_joint:
             loss = loss + loss_joint
@@ -125,9 +132,9 @@ def _train_loss(spec: ModelSpec, state: TrainState, batch: Batch, out,
     raise ValueError(f"unknown contract {spec.contract!r}")
 
 
-def _train_metrics(spec: ModelSpec, state: TrainState, aux, loss, label,
+def _train_metrics(spec: ModelSpec, ema: torch.Tensor, aux, loss, label,
                    valid) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (new_ema, metrics)."""
+    """Returns (new_ema, metrics) from the step's ``ema``."""
     report = [r.detach() for r in aux["report"]]
     fused = aux["fused"].detach()
     metrics = {
@@ -147,13 +154,13 @@ def _train_metrics(spec: ModelSpec, state: TrainState, aux, loss, label,
             metrics[f"train_x{i + 1}_acc"] = C.accuracy(r, label, valid)
         if "vicreg" in aux:
             metrics["train_vicreg_loss"] = aux["vicreg"].detach()
-        return state.ema, metrics
+        return ema, metrics
 
     # jlogits family: uncalibrated and EMA-calibrated unimodal accuracies
     # (BaseModel.py:77-89); the EMA is updated BEFORE its offset is read
     batch_means = torch.stack(
         [ema_lib.masked_batch_mean(r.float(), valid) for r in report])
-    new_ema = ema_lib.ema_update(state.ema, batch_means)
+    new_ema = ema_lib.ema_update(ema, batch_means)
     offset = ema_lib.ema_offset(new_ema)
     for i, r in enumerate(report):
         metrics[f"train_x{i + 1}_acc_uncal"] = C.accuracy(r, label, valid)
@@ -204,7 +211,7 @@ def make_train_step(
         with dropout_source(dropout(state)):
             out = state.model(*_model_inputs(batch, spec))
         aux: Dict[str, Any] = {}
-        loss = _train_loss(spec, state, batch, out, aux)
+        loss = _train_loss(spec, history_of(state), batch, out, aux)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if modulate:
@@ -216,7 +223,7 @@ def make_train_step(
             group["lr"] = state.lr_schedule(state.step)
         state.optimizer.step()
         with torch.no_grad():
-            state.ema, metrics = _train_metrics(spec, state, aux,
+            state.ema, metrics = _train_metrics(spec, state.ema, aux,
                                                 loss.detach(), label, valid)
         if "new_corr" in aux:
             state.qmf_correctness = aux["new_corr"]
@@ -248,75 +255,80 @@ def make_scan_train_step(spec: ModelSpec, k: int):
     return multi
 
 
-def make_eval_step(spec: ModelSpec) -> Callable[[TrainState, Batch], Dict]:
+def eval_outputs(spec: ModelSpec, batch: Batch, out, history) -> Dict:
+    """The eval step's outputs from the forward's ``out`` on the
+    preprocessed ``batch``; ``history``: the QMF tables, or None."""
+    label, valid = batch["label"], batch["valid"]
+    logits = out["logits"]
+    eval_vicreg = None
+
     eval_fusion = spec.eval_fusion or (
         "probas" if spec.contract == "jprobas" else "logits")
+    if spec.contract == "jprobas" and eval_fusion == "probas":
+        report = C.to_logprobs(logits)
+        fused = C.fuse_probas(logits)
+        loss = C.cross_entropy(fused, label, valid)
+    elif spec.contract == "ensemble":
+        # eval fuses the PLAIN mean for every ensemble variant and
+        # averages the losses (BaseModel.py:410-412); the fusion
+        # weights are train-only (mimic/ensemble_model.py:197-199)
+        report = logits
+        fused = C.fuse_logits(logits)
+        ce = [C.cross_entropy(l, label, valid) * spec.unimodal_loss_scale
+              for l in logits]
+        if spec.vicreg_weight:
+            # the vicreg variant evals the SUM of the unimodal losses
+            # (enrico/ensemble_model_vicreg.py:211, 270)
+            eval_vicreg = vicreg_loss(out["embeddings"][0],
+                                      out["embeddings"][1], valid)
+            loss = sum(ce) + spec.vicreg_weight * eval_vicreg
+        else:
+            loss = sum(ce) / len(ce)
+    else:
+        report = logits
+        fused = C.fuse_logits(logits)
+        loss = C.cross_entropy(fused, label, valid)
 
+    outputs = {
+        "logits_stack": torch.stack([r.float() for r in report], dim=1),
+        "label": label,
+        "valid": valid,
+        "loss": loss,
+        "acc": C.accuracy(fused, label, valid),
+    }
+    if eval_vicreg is not None:
+        # the raw (unweighted) vicreg loss per val/test batch
+        # (enrico/ensemble_model_vicreg.py:216, 268)
+        outputs["vicreg_loss"] = eval_vicreg
+    if spec.track_min_loss_counts:
+        outputs.update(_min_loss_counts(logits, fused, label, valid))
+    if spec.contract == "ensemble":
+        rep = C.to_logprobs(report) if spec.report_logprobs else report
+        for i, r in enumerate(rep):
+            outputs[f"x{i + 1}_acc"] = C.accuracy(r, label, valid)
+    if spec.contract == "qmf":
+        logits_df, conf = qmf_lib.df(torch.stack([l.float()
+                                                  for l in logits]))
+        outputs["df_acc"] = C.accuracy(logits_df, label, valid)
+        # the full QMF eval loss (joint + uni + reg), with NO scatter of
+        # val/test rows into the History (the JAX package's documented
+        # divergence from cremad/joint_model_qmf.py:62-65)
+        if not spec.qmf_ablate_train:
+            loss_uni = [C.cross_entropy(l, label, valid) for l in logits]
+            loss_joint = C.cross_entropy(logits_df, label, valid)
+            loss_reg = qmf_lib.reg_loss(conf, batch["idx"], history[0],
+                                        valid)
+            outputs["loss"] = loss_joint + sum(loss_uni) + loss_reg
+    return outputs
+
+
+def make_eval_step(spec: ModelSpec) -> Callable[[TrainState, Batch], Dict]:
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
         if spec.device_preprocess is not None:
             batch = spec.device_preprocess(batch, None, False)
-        label, valid = batch["label"], batch["valid"]
         state.model.eval()
         out = state.model(*_model_inputs(batch, spec))
-        logits = out["logits"]
-        eval_vicreg = None
-
-        if spec.contract == "jprobas" and eval_fusion == "probas":
-            report = C.to_logprobs(logits)
-            fused = C.fuse_probas(logits)
-            loss = C.cross_entropy(fused, label, valid)
-        elif spec.contract == "ensemble":
-            # eval fuses the PLAIN mean for every ensemble variant and
-            # averages the losses (BaseModel.py:410-412); the fusion
-            # weights are train-only (mimic/ensemble_model.py:197-199)
-            report = logits
-            fused = C.fuse_logits(logits)
-            ce = [C.cross_entropy(l, label, valid) * spec.unimodal_loss_scale
-                  for l in logits]
-            if spec.vicreg_weight:
-                # the vicreg variant evals the SUM of the unimodal losses
-                # (enrico/ensemble_model_vicreg.py:211, 270)
-                eval_vicreg = vicreg_loss(out["embeddings"][0],
-                                          out["embeddings"][1], valid)
-                loss = sum(ce) + spec.vicreg_weight * eval_vicreg
-            else:
-                loss = sum(ce) / len(ce)
-        else:
-            report = logits
-            fused = C.fuse_logits(logits)
-            loss = C.cross_entropy(fused, label, valid)
-
-        outputs = {
-            "logits_stack": torch.stack([r.float() for r in report], dim=1),
-            "label": label,
-            "valid": valid,
-            "loss": loss,
-            "acc": C.accuracy(fused, label, valid),
-        }
-        if eval_vicreg is not None:
-            # the raw (unweighted) vicreg loss per val/test batch
-            # (enrico/ensemble_model_vicreg.py:216, 268)
-            outputs["vicreg_loss"] = eval_vicreg
-        if spec.track_min_loss_counts:
-            outputs.update(_min_loss_counts(logits, fused, label, valid))
-        if spec.contract == "ensemble":
-            rep = C.to_logprobs(report) if spec.report_logprobs else report
-            for i, r in enumerate(rep):
-                outputs[f"x{i + 1}_acc"] = C.accuracy(r, label, valid)
-        if spec.contract == "qmf":
-            logits_df, conf = qmf_lib.df(torch.stack([l.float()
-                                                      for l in logits]))
-            outputs["df_acc"] = C.accuracy(logits_df, label, valid)
-            # the full QMF eval loss (joint + uni + reg), with NO scatter of
-            # val/test rows into the History (the JAX package's documented
-            # divergence from cremad/joint_model_qmf.py:62-65)
-            if not spec.qmf_ablate_train:
-                loss_uni = [C.cross_entropy(l, label, valid) for l in logits]
-                loss_joint = C.cross_entropy(logits_df, label, valid)
-                loss_reg = qmf_lib.reg_loss(conf, batch["idx"],
-                                            state.qmf_correctness, valid)
-                outputs["loss"] = loss_joint + sum(loss_uni) + loss_reg
-        return outputs
+        return eval_outputs(spec, batch, out, history_of(state))
 
     return eval_step

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_bn import batch_norm_inference, batch_norm_train_stats
+from ..ops.seed_fold import batch_norm
 
 
 def kaiming_normal_fan_out_(w: torch.Tensor, generator=None) -> torch.Tensor:
@@ -113,7 +114,8 @@ class TorchBatchNorm(BatchNormBase):
     """BatchNorm with the JAX package's default (flax ``nn.BatchNorm``)
     semantics, which differ from ``torch.nn.BatchNorm2d``: statistics in
     fp32, and the BIASED batch variance goes into ``running_var``.
-    ``F.batch_norm`` computes the batch statistics into scratch buffers
+    ``F.batch_norm`` (``ops/seed_fold.batch_norm`` under the multi-seed
+    sweep's vmap) computes the batch statistics into scratch buffers
     (momentum 1 leaves the batch mean and the unbiased variance there) and
     the running buffers are updated here by hand.  The output is in
     ``dtype`` or, when None, in the promotion of the input with fp32, as
@@ -123,14 +125,14 @@ class TorchBatchNorm(BatchNormBase):
         out_dtype = self.dtype or torch.promote_types(x.dtype,
                                                       self.weight.dtype)
         if not self.training:
-            y = F.batch_norm(x, self.running_mean, self.running_var,
-                             self.weight, self.bias, False, 0.0, self.eps)
+            y = batch_norm(x, self.running_mean, self.running_var,
+                           self.weight, self.bias, False, 0.0, self.eps)
             return y.to(out_dtype)
         c = x.shape[1]
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
-                         self.eps)
+        y = batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                       self.eps)
         with torch.no_grad():
             m = x.numel() // c
             biased = var * ((m - 1) / m)

@@ -27,6 +27,7 @@ from typing import Tuple
 import torch
 
 from . import cuda_fused_bn as cuda
+from .seed_fold import fold_seeds_into_channels, unfold_channels
 
 
 def channel_sums(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,10 +61,17 @@ def _grad_sums(dy, x, mean, rstd):
 
 class _BatchNormTrain(torch.autograd.Function):
     """``_bn_fwd`` / ``_bn_bwd`` of the JAX package's ``custom_vjp``; the
-    mean and var outputs carry no gradient."""
+    mean and var outputs carry no gradient.  Under ``torch.func.vmap``
+    (the multi-seed sweep) the ``vmap`` rule folds the seed axis into the
+    channels: the statistics are per channel, so S seeds' (..., S, C) maps
+    normalise as one (..., S * C) map, one launch of each sums kernel for S
+    seeds.  On the card that needs S * C within the kernels' ``MAX_C``;
+    past it the rule raises.  The fold is a view where the seed axis lies
+    next to the channels in memory, as the seed-grouped convolutions leave
+    it, and a copy elsewhere."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(x, scale, bias, eps):
         m = x.numel() // x.shape[-1]
         s, s2 = _sums(x)
         mean = s / m
@@ -72,12 +80,17 @@ class _BatchNormTrain(torch.autograd.Function):
         scale_eff = scale.float() * rstd
         bias_eff = bias.float() - mean * scale_eff
         y = torch.addcmul(bias_eff, x, scale_eff, out=torch.empty_like(x))
-        ctx.save_for_backward(x, scale, mean, rstd)
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        return y, mean, var, rstd
 
     @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
+    def setup_context(ctx, inputs, output):
+        x, scale, _, _ = inputs
+        _, mean, var, rstd = output
+        ctx.save_for_backward(x, scale, mean, rstd)
+        ctx.mark_non_differentiable(mean, var, rstd)
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar, _drstd):
         x, scale, mean, rstd = ctx.saved_tensors
         # the sums read dy's (..., C) view row-major; autograd may hand
         # back another layout (the expanded gradient of a ``.sum()``), so
@@ -94,13 +107,37 @@ class _BatchNormTrain(torch.autograd.Function):
         return (dx, sum_dy_xhat.to(scale.dtype), sum_dy.to(scale.dtype),
                 None)
 
+    @staticmethod
+    def vmap(info, in_dims, x, scale, bias, eps):
+        seeds = info.batch_size
+        x_dim, scale_dim, bias_dim, _ = in_dims
+        scale = _per_seed(scale, scale_dim, seeds)
+        bias = _per_seed(bias, bias_dim, seeds)
+        c = scale.shape[-1]
+        if x.device.type != "cpu" and seeds * c > cuda.MAX_C:
+            raise ValueError(
+                f"bn_fused under vmap folds {seeds} seeds x {c} channels "
+                f"into {seeds * c}, past the BN-sums kernels' MAX_C of "
+                f"{cuda.MAX_C}: sweep fewer seeds")
+        xf, _ = fold_seeds_into_channels(x, x_dim, seeds)
+        y, mean, var, rstd = _BatchNormTrain.apply(
+            xf, scale.reshape(-1), bias.reshape(-1), eps)
+        stats = [t.view(seeds, c) for t in (mean, var, rstd)]
+        return ((unfold_channels(y, seeds, c), *stats),
+                (y.dim() - 1, 0, 0, 0))
+
+
+def _per_seed(t: torch.Tensor, bdim, seeds: int) -> torch.Tensor:
+    """(S, C) from a per-channel tensor batched at ``bdim`` or shared."""
+    return t.expand(seeds, *t.shape) if bdim is None else t.movedim(bdim, 0)
+
 
 def batch_norm_train_stats(x: torch.Tensor, scale: torch.Tensor,
                            bias: torch.Tensor, eps: float = 1e-5):
     """Training-mode BN over a channels-last (..., C) ``x``: returns
     (y in x's dtype, mean, biased var), the last two fp32 and without
     gradient.  ``y`` is differentiable in (x, scale, bias)."""
-    return _BatchNormTrain.apply(x, scale, bias, float(eps))
+    return _BatchNormTrain.apply(x, scale, bias, float(eps))[:3]
 
 
 def batch_norm_inference(x: torch.Tensor, scale: torch.Tensor,
@@ -110,4 +147,8 @@ def batch_norm_inference(x: torch.Tensor, scale: torch.Tensor,
     rstd = torch.rsqrt(var.float() + eps)
     scale_eff = scale.float() * rstd
     bias_eff = bias.float() - mean.float() * scale_eff
+    if torch._C._functorch.is_batchedtensor(x):
+        # vmap takes no out= argument: the fp32 result rounded once to
+        # x's dtype, as the mixed-dtype out= write rounds it
+        return torch.addcmul(bias_eff, x, scale_eff).to(x.dtype)
     return torch.addcmul(bias_eff, x, scale_eff, out=torch.empty_like(x))

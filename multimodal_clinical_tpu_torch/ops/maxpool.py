@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from . import cuda_maxpool as cuda
 from .cuda_maxpool import pooled_size
+from .seed_fold import fold_seeds_into_channels, unfold_channels
 
 
 def pool_fwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -66,20 +67,30 @@ def pool_bwd(dy: torch.Tensor, idx: torch.Tensor, h: int,
 
 
 class _StoredIndexMaxPool(torch.autograd.Function):
-    """Forward saves only the uint8 index and the input's H and W."""
+    """Forward saves only the uint8 index and the input's H and W.  Under
+    ``torch.func.vmap`` (the multi-seed sweep) the ``vmap`` rule folds the
+    seed axis into the channels: pooling is per channel, so S seeds' maps
+    (B, H, W, S, C) pool as one (B, H, W, S * C) map, one launch of each
+    kernel for S seeds.  The fold is a view where the seed axis lies next
+    to the channels in memory, as the seed-grouped convolutions leave it,
+    and a copy elsewhere."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(x):
         if x.device.type == "cpu":
-            y, idx = pool_fwd(x)
-        else:
-            y, idx = cuda.launch_pool_fwd(x)
-        ctx.save_for_backward(idx)
-        ctx.hw = x.shape[1:3]
-        return y
+            return pool_fwd(x)
+        return cuda.launch_pool_fwd(x)
 
     @staticmethod
-    def backward(ctx, dy):
+    def setup_context(ctx, inputs, output):
+        (x,) = inputs
+        _, idx = output
+        ctx.save_for_backward(idx)
+        ctx.mark_non_differentiable(idx)
+        ctx.hw = x.shape[1:3]
+
+    @staticmethod
+    def backward(ctx, dy, _didx):
         (idx,) = ctx.saved_tensors
         # the backward reads dy (B, Ho, Wo, C) row-major; autograd may hand
         # back another layout (the expanded gradient of a ``.sum()``), so
@@ -89,14 +100,24 @@ class _StoredIndexMaxPool(torch.autograd.Function):
             return pool_bwd(dy, idx, *ctx.hw)
         return cuda.launch_pool_bwd(dy, idx, *ctx.hw)
 
+    @staticmethod
+    def vmap(info, in_dims, x):
+        seeds = info.batch_size
+        x, c = fold_seeds_into_channels(x, in_dims[0], seeds)
+        y, idx = _StoredIndexMaxPool.apply(x)
+        return ((unfold_channels(y, seeds, c), unfold_channels(idx, seeds, c)),
+                (3, 3))
+
 
 def max_pool_3x3_s2_stored_index(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> (B, ceil(H/2), ceil(W/2), C) max-pool, window 3,
-    stride 2, pad 1.  Under autograd (grad enabled, ``x`` requiring grad)
-    the forward and backward are the stored-index kernels, as the JAX op's
+    stride 2, pad 1.  Under autograd (grad enabled, ``x`` requiring grad,
+    or batched by ``torch.func.vmap``, whose tensors do not report it) the
+    forward and backward are the stored-index kernels, as the JAX op's
     ``custom_vjp``; elsewhere, as the JAX op's undifferentiated primal
     (XLA's ``reduce_window``), it is ``F.max_pool2d``, which needs no
     index."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _StoredIndexMaxPool.apply(x)
+    if torch.is_grad_enabled() and (
+            x.requires_grad or torch._C._functorch.is_batchedtensor(x)):
+        return _StoredIndexMaxPool.apply(x)[0]
     return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)

@@ -45,14 +45,21 @@ def apply_masks(spectrogram: torch.Tensor, fmask: torch.Tensor,
     return spectrogram * fmask[:, :, None] * tmask[:, None, :]
 
 
-def spec_augment_masks(generator: torch.Generator, batch: int, f: int, t: int,
+def spec_augment_masks(generator, batch: int, f: int, t: int,
                        device, freq_mask_param: int = 30,
                        time_mask_param: int = 120, num_freq_masks: int = 2,
                        num_time_masks: int = 3
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(fmask (B, F), tmask (B, T)) for one batch: frequency bands drawn
-    first, then time bands."""
-    fw, fs = draw_bands(generator, batch, f, freq_mask_param, num_freq_masks)
-    tw, ts = draw_bands(generator, batch, t, time_mask_param, num_time_masks)
+    first, then time bands.  ``generator`` may be a sequence of S
+    generators (the multi-seed sweep's, one a seed): row block s of the
+    S equal blocks then takes generator s's draws, those of a batch of
+    B / S rows."""
+    gens = (list(generator) if isinstance(generator, (list, tuple))
+            else [generator])
+    per = batch // len(gens)
+    draws = [draw_bands(g, per, f, freq_mask_param, num_freq_masks)
+             + draw_bands(g, per, t, time_mask_param, num_time_masks)
+             for g in gens]
+    fw, fs, tw, ts = (torch.cat(parts) for parts in zip(*draws))
     return band_mask(fw, fs, f, device), band_mask(tw, ts, t, device)
-

@@ -148,11 +148,20 @@ def test_registry_raises_for_an_unknown_name():
         get_benchmark("nosuch")
 
 
-def test_multiseed_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        port_main.run_training(["--dir", "vggsound", "--set", "num_seeds=2",
-                                "--set", f"data_path={tmp_path}/none"],
-                               device="cpu")
+def test_multiseed_cli_writes_seeds_csv(tmp_path):
+    """``--set num_seeds=2`` trains seeds 3 and 4 as one sweep through
+    train, val and test, and writes their test metrics to seeds.csv."""
+    summary = port_main.run_training(
+        ["--dir", "mimic", "--seed", "3", "--set", "num_seeds=2",
+         "--set", "num_epochs=1", "--set", f"data_path={tmp_path}/none"],
+        device="cpu")
+    assert {"test_epoch/test_avg_acc", "test_epoch/test_avg_acc_std",
+            "test_epoch/test_avg_acc_seed0",
+            "test_epoch/test_avg_acc_seed1"} <= set(summary)
+    (path,) = Path(f"{tmp_path}/none_ckpts").glob("*/seeds.csv")
+    rows = path.read_text().splitlines()
+    assert rows[0].split(",")[:2] == ["seed", "test_epoch/test_avg_acc"]
+    assert [r.split(",")[0] for r in rows[1:]] == ["3", "4", "mean", "std"]
 
 
 @pytest.mark.parametrize("key,value", [("fsdp", True),

@@ -17,6 +17,7 @@ from multimodal_clinical_tpu_torch.benchmarks import vggsound
 from multimodal_clinical_tpu_torch.benchmarks.vggsound_fixture import (
     build_vggsound_bench,
 )
+from multimodal_clinical_tpu_torch.engine import multiseed
 from multimodal_clinical_tpu_torch.engine.spec import ModelSpec
 from multimodal_clinical_tpu_torch.engine.state import create_train_state
 from multimodal_clinical_tpu_torch.engine.steps import make_eval_step
@@ -153,6 +154,17 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(no_cuda):
                                device="cpu")
     assert next(state.model.parameters()).device.type == "cpu"
     assert state.ema.device.type == "cpu"
+    # the multi-seed sweep: its run, state and loader
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multiseed.run_multiseed(args, vggsound, [0, 1])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multiseed.create_multiseed_state(spec, args, [0, 1], 1)
+    sweep = multiseed.create_multiseed_state(spec, args, [0, 1], 1,
+                                             device="cpu")
+    assert {t.device.type for t in (*sweep.params.values(), sweep.ema)} == {
+        "cpu"}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multiseed.MultiSeedLoader([], 1, [])
 
 
 def test_vggsound_fixture_steps_on_the_cpu():
