@@ -213,7 +213,29 @@ Phases, each of which raises on failure:
    rows); (c) per sweep, the
    step's median, the step per seed, the device's idle share and peak
    memory beside the single-seed step that phases 7, 14 and 17b measured,
-   and ``seeds.csv`` read back.
+   and ``seeds.csv`` read back;
+22. the tower switches and the tools: (a) narrow fp32 steps of the
+   fixture under ``remat="none"`` and under ``"convs"`` with the
+   space-to-depth stem, card against CPU, and the narrow switched encoder
+   under ``"convs"`` (20 BN-sums launches forward and 19 more in the
+   recompute); then the fixture at batch 224 (309 classes, bf16, the
+   stored-index pool) from one state with the stem plain and
+   space-to-depth and ``remat`` None, "convs" and "none", the plain run
+   again last as the witness: step ms, peak GiB, a profiled step's idle
+   share, launches; after three steps each remat run's losses and running
+   buffers against the plain run's, within a multiple of the witness's
+   gap; the conv outputs the "convs" policy saved; both max-pool kernels
+   against their plain versions at the path's shapes; (b) the resnet50
+   Bottleneck tower with ``bn_fused=True`` trained at batch 32 of 224 x
+   224 in bf16 (53 BN-sums launches each way a step), both BN-sums
+   kernels then held at every shape it gave them, C = 2048 included; (c)
+   a full-width VGGSound jprobas run for one epoch on waveform rows,
+   ``tools/predict.py`` on its best checkpoint (the trainer's test
+   accuracy, one log-STFT launch an eval batch), ``tools/export.py
+   --batch sym`` and the loaded artifact on one test batch of 224 (the
+   log-STFT launched inside the served program; within SERVE_TOL of the
+   eval step's outputs); (d) ``tools/preprocess.py cremad-audio`` on the
+   card against the CPU.
 
 The CLI runs as a ``python3 -m`` subprocess once per family (phase 11 for
 VGGSound, Crema-D and AVE, 17c for the small nets, 20d for Food101), and
@@ -226,9 +248,11 @@ kernels' line gives each kernel's launches on the main path as
 ``launches`` and on the later paths under ``launches_by_path`` (0 on
 AV-MNIST's, MIMIC's, MUsTARD's, Enrico's, FakeNews's, Food101's and the
 Food101 legacy pair's; ``multiseed`` for phase 21b's sweeps and
-``multiseed_narrow`` for 21a's card sweeps); the
+``multiseed_narrow`` for 21a's card sweeps; ``remat``,
+``bottleneck_bn_fused`` and ``serve`` for phase 22a-c); the
 max-pool's entries list the shapes checked on the phase 14 path and on
-phase 21b's Crema-D sweep (``multiseed``) under ``checked_shapes_by_path``.
+phase 21b's Crema-D sweep (``multiseed``) and on phase 22a's fixture
+(``remat``) under ``checked_shapes_by_path``.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints no
@@ -758,9 +782,10 @@ def _scaled_err(got, want):
                                                  1e-30)
 
 
-def _narrow_step(dev, dtype, preprocess=None, pool_kernel="xla"):
-    """Two train steps of the narrow fixture on ``dev``: losses, the
-    initial and final state_dict, momentum buffers and EMA, on the CPU."""
+def _narrow_step(dev, dtype, preprocess=None, pool_kernel="xla", **knobs):
+    """Two train steps of the narrow fixture on ``dev`` (``knobs``: its
+    ``remat`` and ``stem_space_to_depth``): losses, the initial and final
+    state_dict, momentum buffers and EMA, on the CPU."""
     from multimodal_clinical_tpu_torch.benchmarks.vggsound_fixture import (
         build_vggsound_bench,
     )
@@ -768,7 +793,7 @@ def _narrow_step(dev, dtype, preprocess=None, pool_kernel="xla"):
     step, state, batch, spec = build_vggsound_bench(
         batch=2, num_classes=5, pool_kernel=pool_kernel, device=dev,
         frames_bf16=False, num_frames=2, image_size=32, samples=4000,
-        width=8, dtype=None)
+        width=8, dtype=None, **knobs)
     state.model.to(dtype)
     if preprocess is not None:
         spec.device_preprocess = preprocess
@@ -806,14 +831,15 @@ def _compare_fp32_steps(card, host, what: str) -> None:
         f"{host['losses']}; BN buffers within {worst:.2e}")
 
 
-def _narrow_encoder(dev):
+def _narrow_encoder(dev, remat=None):
     """One train-mode pass of a narrow ResNet18 with both kernel switches on
-    ``dev``, fp32: loss, gradients (the input's too), running buffers and
-    the kernels' launches, on the CPU."""
+    ``dev``, fp32, under ``remat``: loss, gradients (the input's too),
+    running buffers and the kernels' launches, on the CPU."""
     from multimodal_clinical_tpu_torch.models.common import init_weights
     from multimodal_clinical_tpu_torch.models.resnet import ResNetEncoder
 
-    enc = ResNetEncoder(1, width=8, bn_fused=True, pool_kernel="pallas")
+    enc = ResNetEncoder(1, width=8, bn_fused=True, pool_kernel="pallas",
+                        remat=remat)
     init_weights(enc, torch.Generator().manual_seed(ENC_SEED))
     enc = enc.to(dev, memory_format=torch.channels_last)
     rng = np.random.default_rng(ENC_SEED)
@@ -897,12 +923,18 @@ def phase_card_against_cpu(device):
         f"{host['losses']}; updates within {worst['update']:.2e}, momentum "
         f"within {worst['momentum']:.2e} of each tensor's largest entry")
 
-    card, host = _narrow_encoder(device), _narrow_encoder(cpu)
     # one tower: 20 BNs and one stem max-pool, each forward and backward
-    want = {"bn_sums": 20, "bn_bwd_sums": 20, "maxpool_fwd": 1,
-            "maxpool_bwd": 1}
+    _compare_narrow_encoders(
+        _narrow_encoder(device), _narrow_encoder(cpu),
+        {"bn_sums": 20, "bn_bwd_sums": 20, "maxpool_fwd": 1,
+         "maxpool_bwd": 1}, "")
+
+
+def _compare_narrow_encoders(card, host, want, what: str) -> None:
+    """The narrow switched encoder's pass on the card against the CPU's;
+    the card must have launched each kernel as ``want`` says."""
     if card["launches"] != want or any(host["launches"].values()):
-        raise AssertionError(f"narrow encoder launches: card "
+        raise AssertionError(f"narrow encoder{what} launches: card "
                              f"{card['launches']}, CPU {host['launches']}")
     np.testing.assert_allclose(card["loss"], host["loss"],
                                rtol=ENC_LOSS_RTOL)
@@ -921,8 +953,8 @@ def phase_card_against_cpu(device):
     buffer_err = max(_scaled_err(card["buffers"][k], v)
                      for k, v in host["buffers"].items())
     log(f"[card-vs-cpu] fp32 narrow encoder (bn_fused, pool_kernel="
-        f"'pallas'), input {ENC_INPUT}: loss card {card['loss']:.7g} cpu "
-        f"{host['loss']:.7g}; gradients within {grad_err:.2e}, running "
+        f"'pallas'{what}), input {ENC_INPUT}: loss card {card['loss']:.7g} "
+        f"cpu {host['loss']:.7g}; gradients within {grad_err:.2e}, running "
         f"buffers (unbiased variance) within {buffer_err:.2e} of each "
         f"tensor's largest entry; card launches {card['launches']}")
 
@@ -4841,6 +4873,434 @@ def _multiseed_runs(device, card: str):
     return total, pool_shapes
 
 
+# phase 22 writes its runs here, and removes them after
+SWITCH_DIR = WORK_DIR / "switches"
+# 22a: (stem_space_to_depth, remat) of the fixture's runs from one state,
+# the first case again last as the witness of the run-to-run gap
+REMAT_CASES = ((False, None), (False, "convs"), (False, "none"),
+               (True, None), (False, None))
+REMAT_STEPS, REMAT_HELD = 4, 3  # one warm-up and three timed; held after 3
+# the bf16 fixture at full width, a remat run against the no-remat run
+# from the same state: the losses (relative) and the running buffers (of
+# each tensor's largest entry) within REMAT_WITNESS times the gap of the
+# no-remat run against itself (cuDNN may pick weight-gradient algorithms
+# that add in another order from run to run), or REMAT_FLOOR where that
+# gap is smaller: recompute runs the same ops on the same inputs
+REMAT_WITNESS, REMAT_FLOOR = 4.0, 1e-5
+# the conv outputs the "convs" policy saves a step: each tower's 8 blocks
+# save conv1 and conv2, and its 3 projecting blocks the projection
+REMAT_SAVED = 2 * (2 * 8 + 3)
+# 22b: torchvision resnet50's geometry with every BN the BN-sums one: the
+# stem's, 3 in each of 16 blocks, and the 4 projections
+BOTTLENECK_BATCH, BOTTLENECK_CLASSES, BOTTLENECK_STEPS = 32, 101, 4
+BOTTLENECK_BNS = 1 + 3 * 16 + 4
+# 22c: the served program against the eval step on the same batch, bf16:
+# both run the same ops, so the stacked logits and the log-probabilities
+# agree to within a bf16 rounding of the logits' scale
+SERVE_TOL = 2.0 ** -6
+SERVE_TIMED = 3
+PREPROCESS_CLIPS = 6
+
+
+def _restore(state, snapshot):
+    model, optimizer, ema = snapshot
+    state.model.load_state_dict(model)
+    state.optimizer.load_state_dict(optimizer)
+    state.ema = ema.clone()
+    state.step = 0
+    return state
+
+
+def _gap(run, base):
+    """(largest relative loss gap, largest running-buffer gap in units of
+    each tensor's largest entry) of two 22a runs."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                   base["losses"]))
+    buffers = max(_scaled_err(run["buffers"][k], v)
+                  for k, v in base["buffers"].items())
+    return loss, buffers
+
+
+@contextlib.contextmanager
+def _saved_ops(ops):
+    """While open, the "convs" policy's MUST_SAVE answers in a forward are
+    appended to ``ops`` (the op's name)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from multimodal_clinical_tpu_torch.models import resnet
+
+    policy = resnet._save_conv_outputs
+
+    def recording(ctx, op, *args, **kwargs):
+        choice = policy(ctx, op, *args, **kwargs)
+        if choice == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+            ops.append(str(op))
+        return choice
+
+    resnet._save_conv_outputs = recording
+    try:
+        yield ops
+    finally:
+        resnet._save_conv_outputs = policy
+
+
+def _remat_fixture(device, card: str):
+    """22a at full width: the fixture (batch 224, 309 classes, bf16, the
+    stored-index pool) under each of REMAT_CASES from one state; returns
+    the launches summed over the remat runs and the pool shapes held."""
+    import copy
+
+    from multimodal_clinical_tpu_torch.benchmarks.vggsound_fixture import (
+        build_vggsound_bench,
+    )
+
+    t = time.perf_counter()
+    train_step, state, batch, _ = build_vggsound_bench(
+        BATCH, CLASSES, pool_kernel="pallas", device=device)
+    towers = (state.model.x1_model, state.model.x2_model)
+    snapshot = ({k: v.clone() for k, v in state.model.state_dict().items()},
+                copy.deepcopy(state.optimizer.state_dict()), state.ema.clone())
+    log(f"[switches] 22a fixture built in {time.perf_counter() - t:.1f} s")
+    runs, total, saved = [], collections.Counter(), []
+    with _recording_calls() as calls:
+        launchers = _all_launchers()
+        for s2d, remat in REMAT_CASES:
+            state = _restore(state, snapshot)
+            for enc in towers:
+                enc.conv1.space_to_depth, enc.remat = s2d, remat
+            for fn in launchers.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            losses, step_ms, ops = [], [], []
+            with _saved_ops(ops):
+                for i in range(REMAT_STEPS):
+                    tic = time.perf_counter()
+                    state, metrics = train_step(state, batch)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - tic) * 1e3)
+                    losses.append(float(metrics["train_loss"]))
+                    if i + 1 == REMAT_HELD:
+                        buffers = {k: v.float().clone() for k, v in
+                                   state.model.state_dict().items()
+                                   if "running" in k}
+            launches = {n: fn.launches for n, fn in launchers.items()}
+            wall, busy = _profiled_step(train_step, state, batch)
+            want = {"log_spectrogram": REMAT_STEPS,
+                    "maxpool_fwd": 2 * REMAT_STEPS,
+                    "maxpool_bwd": 2 * REMAT_STEPS}
+            if launches != {n: want.get(n, 0) for n in launches}:
+                raise AssertionError(f"22a s2d={s2d} remat={remat!r}: "
+                                     f"launches {launches}, want {want}")
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"22a non-finite losses {losses}")
+            if len(ops) != (REMAT_SAVED * REMAT_STEPS if remat == "convs"
+                            else 0) or set(ops) - {"aten.convolution.default"}:
+                raise AssertionError(f"22a remat={remat!r}: the policy "
+                                     f"saved {collections.Counter(ops)}")
+            if remat:
+                total.update(launches)
+            run = dict(s2d=s2d, remat=remat, losses=losses[:REMAT_HELD],
+                       buffers=buffers,
+                       ms=statistics.median(step_ms[1:]),
+                       peak=torch.cuda.max_memory_allocated() / 2**30)
+            runs.append(run)
+            log(f"[switches] 22a {card}: stem_space_to_depth={s2d} "
+                f"remat={remat!r}: train step median {run['ms']:.2f} ms over "
+                f"{REMAT_STEPS - 1} ({', '.join(f'{m:.2f}' for m in step_ms)}"
+                f" with the warm-up), peak memory {run['peak']:.2f} GiB; one "
+                f"profiled step {wall:.2f} ms, device busy {busy:.2f} ms, "
+                f"idle share {1 - busy / run['ms']:.3f} of the median step; "
+                f"losses {losses}, launches {launches}"
+                + (f", the policy saved {collections.Counter(ops)}"
+                   if ops else ""))
+        for enc in towers:
+            enc.conv1.space_to_depth, enc.remat = False, None
+    del train_step, state, batch, snapshot
+    torch.cuda.empty_cache()
+    base, witness = runs[0], _gap(runs[-1], runs[0])
+    for run in runs[1:-1]:
+        gap = _gap(run, base)
+        if run["remat"] is not None:
+            limits = [max(REMAT_WITNESS * w, REMAT_FLOOR) for w in witness]
+            if not all(g <= lim for g, lim in zip(gap, limits)):
+                raise AssertionError(
+                    f"22a remat={run['remat']!r}: losses and buffers "
+                    f"{gap} from the no-remat run's, past {limits}")
+        log(f"[switches] 22a stem_space_to_depth={run['s2d']} remat="
+            f"{run['remat']!r} against the plain run after {REMAT_HELD} "
+            f"steps: losses within {gap[0]:.3e} relative, running buffers "
+            f"within {gap[1]:.3e} of each tensor's largest entry (the plain "
+            f"run against itself: {witness[0]:.3e}, {witness[1]:.3e}); "
+            f"step {run['ms'] - base['ms']:+.2f} ms, peak "
+            f"{run['peak'] - base['peak']:+.2f} GiB")
+    shapes = _check_path_pools(calls, "22a")
+    return total, shapes
+
+
+def _switches_card_against_cpu(device):
+    """22a's narrow checks, fp32 and TF32 off: the narrow fixture under
+    each remat (the second with the space-to-depth stem) on the card
+    against the CPU; the narrow switched encoder under "convs".  Returns
+    the card's launches on the encoder path."""
+    cpu = torch.device("cpu")
+    with _torch_set(False, False, 2):
+        for knobs in (dict(remat="none"),
+                      dict(remat="convs", stem_space_to_depth=True)):
+            _compare_fp32_steps(
+                _narrow_step(device, torch.float32, pool_kernel="pallas",
+                             **knobs),
+                _narrow_step(cpu, torch.float32, pool_kernel="pallas",
+                             **knobs), f"22a {knobs}")
+        card = _narrow_encoder(device, remat="convs")
+        # the 20 BNs forward, the 19 inside blocks again in the recompute
+        _compare_narrow_encoders(
+            card, _narrow_encoder(cpu, remat="convs"),
+            {"bn_sums": 20 + 19, "bn_bwd_sums": 20, "maxpool_fwd": 1,
+             "maxpool_bwd": 1}, ", remat='convs'")
+    return card["launches"]
+
+
+def _bottleneck_bn_fused(device, card: str):
+    """22b: the resnet50 Bottleneck tower with ``bn_fused=True`` and a
+    101-way head, trained with SGD at batch 32 of 224 x 224 in bf16;
+    then both BN-sums kernels against their plain versions at every shape
+    the steps gave them.  Returns the steps' launches."""
+    from multimodal_clinical_tpu_torch.models.common import (
+        TorchDense, global_avg_pool, init_weights,
+    )
+    from multimodal_clinical_tpu_torch.models.resnet import (
+        BottleneckResNetEncoder,
+    )
+
+    enc = BottleneckResNetEncoder(3, (3, 4, 6, 3), dtype=torch.bfloat16,
+                                  bn_fused=True)
+    head = TorchDense(enc.out_features, BOTTLENECK_CLASSES, torch.bfloat16)
+    net = torch.nn.ModuleList([enc, head])
+    init_weights(net, torch.Generator().manual_seed(0))
+    net.to(device, memory_format=torch.channels_last)
+    opt = torch.optim.SGD(net.parameters(), lr=0.01, momentum=0.9)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(BOTTLENECK_BATCH, 224, 224, 3))
+                         .astype(np.float32)).to(device, torch.bfloat16)
+    label = torch.from_numpy(rng.integers(0, BOTTLENECK_CLASSES,
+                                          BOTTLENECK_BATCH)).to(device)
+    torch.cuda.reset_peak_memory_stats()
+
+    def train_step(state, batch):
+        opt.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(head(global_avg_pool(enc(x))).float(), label)
+        loss.backward()
+        opt.step()
+        return state, loss.detach()
+
+    step_ms, losses = [], []
+    with _recording_calls() as calls:
+        launchers = _all_launchers()
+        for fn in launchers.values():
+            fn.launches = 0
+        for _ in range(BOTTLENECK_STEPS):
+            tic = time.perf_counter()
+            _, loss = train_step(None, None)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - tic) * 1e3)
+            losses.append(float(loss))
+        launches = {n: fn.launches for n, fn in launchers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall, busy = _profiled_step(train_step, None, None)
+    median = statistics.median(step_ms[1:])
+    want = {"bn_sums": BOTTLENECK_BNS * BOTTLENECK_STEPS,
+            "bn_bwd_sums": BOTTLENECK_BNS * BOTTLENECK_STEPS}
+    if launches != {n: want.get(n, 0) for n in launches} or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"22b launches {launches}, want {want}; "
+                             f"losses {losses}")
+    if any(float(m.running_mean.abs().sum()) == 0 for m in enc.modules()
+           if hasattr(m, "running_mean")):
+        raise AssertionError("22b: a BN's running mean did not move")
+    log(f"[switches] 22b {card}: resnet50 bn_fused, batch "
+        f"{BOTTLENECK_BATCH} of 224 x 224, bf16: train step median "
+        f"{median:.2f} ms over {BOTTLENECK_STEPS - 1} "
+        f"({', '.join(f'{m:.2f}' for m in step_ms)} with the warm-up), peak "
+        f"memory {peak:.2f} GiB; one profiled step {wall:.2f} ms, device "
+        f"busy {busy:.2f} ms, idle share {1 - busy / median:.3f} of the "
+        f"median step; losses {losses}, "
+        f"{launches['bn_sums'] // BOTTLENECK_STEPS} BN-sums launches a "
+        f"step each way")
+    del enc, head, net, opt, x
+    torch.cuda.empty_cache()
+    shapes = collections.Counter(calls["bn_sums"])
+    if shapes != collections.Counter(calls["bn_bwd_sums"]) or not any(
+            c == 2048 for _, c in shapes):
+        raise AssertionError(f"22b BN-sums shapes {dict(shapes)}")
+    worst = [0.0, 0.0]
+    for i, (m, c) in enumerate(sorted(shapes)):
+        fwd, bwd = _check_bn(*_bn_case(m, c, torch.bfloat16, 100 + i),
+                             f"22b ({m}, {c})")
+        worst = [max(worst[0], fwd[1]), max(worst[1], bwd[1])]
+    torch.cuda.empty_cache()
+    log(f"[kernels] BN sums at the {len(shapes)} shapes of 22b "
+        f"({', '.join(f'{s} x{n}' for s, n in sorted(shapes.items()))}): "
+        f"forward within {worst[0]:.2e}, backward within {worst[1]:.2e} of "
+        f"the terms' magnitude, two launches bit-equal")
+    return launches
+
+
+def _serve(device, card: str):
+    """22c: the VGGSound jprobas CLI's run (its ``run_benchmark``) at full
+    width for one epoch on waveform rows, ``predict`` on its best
+    checkpoint, ``export --batch sym`` and the served program on one test
+    batch, beside the eval step on it.  Returns the log-STFT's launches
+    from ``predict`` on (one an eval or served batch)."""
+    from multimodal_clinical_tpu_torch.benchmarks import vggsound
+    from multimodal_clinical_tpu_torch.config import load_config
+    from multimodal_clinical_tpu_torch.engine import run
+    from multimodal_clinical_tpu_torch.engine.steps import make_eval_step
+    from multimodal_clinical_tpu_torch.ops import cuda_spectrogram as cs
+    from multimodal_clinical_tpu_torch.tools import export, predict
+
+    work = SWITCH_DIR / "serve"
+    bundle = _waveform_bundle(BATCH, BATCH)
+    args = load_config("vggsound", overrides=dict(
+        num_epochs=1, batch_size=BATCH, loader_workers=4,
+        ckpt_dir=str(work), data_path=str(work / "none")))
+    module = SimpleNamespace(get_data=lambda _: bundle,
+                             get_model_spec=vggsound.get_model_spec)
+    t = time.perf_counter()
+    summary = run.run_benchmark(args, module, device=device)
+    ckpt = str(work / args.group_name / "ckpt")
+    log(f"[serve] one epoch through run_benchmark: "
+        f"{time.perf_counter() - t:.1f} s, test_avg_acc "
+        f"{summary['test_epoch/test_avg_acc']:.6f}")
+    cs.launch_log_spectrogram.launches = 0
+    t = time.perf_counter()
+    rows, got = predict.predict(args, module, "test", ckpt, "best",
+                                device=device)
+    launches = cs.launch_log_spectrogram.launches
+    # one epoch: the best checkpoint holds the weights the trainer tested
+    if (got["n"] != len(bundle.test) or launches != 1
+            or abs(got["acc"] - summary["test_epoch/test_avg_acc"]) > 1e-6):
+        raise AssertionError(f"22c predict: {got}, {launches} log-STFT "
+                             f"launches, trainer {summary}")
+    log(f"[serve] predict: {got['n']} rows, acc {got['acc']:.6f} (the "
+        f"trainer's {summary['test_epoch/test_avg_acc']:.6f}), {launches} "
+        f"log-STFT launch, {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out_dir = export.export_benchmark(args, module, ckpt, "best", "sym",
+                                      str(work / "artifact"), device=device)
+    export_s = time.perf_counter() - t
+    serve = export.load_artifact(out_dir)
+    sample = bundle.test.gather(np.arange(BATCH))
+    inputs = [torch.from_numpy(sample[k]).to(device)
+              for k in ("x1_waveform", "x2")]
+    before = cs.launch_log_spectrogram.launches
+    served = serve(*inputs)
+    torch.cuda.synchronize()
+    served_launches = cs.launch_log_spectrogram.launches - before
+    _, spec, state = predict.restore_state(args, module, ckpt, "best", device)
+    batch = dict(zip(("x1_waveform", "x2"), inputs))
+    batch.update(label=torch.from_numpy(sample["label"]).to(device),
+                 valid=torch.ones(BATCH, device=device),
+                 idx=torch.arange(BATCH, device=device))
+    evaluated = make_eval_step(spec)(state, batch)
+    stack = evaluated["logits_stack"]
+    want_logp = torch.log_softmax(torch.log(
+        stack.exp().mean(dim=1) + 1e-7), dim=-1)
+    scale = max(1.0, float(stack.abs().max()))
+    err = max(float((served["logits_stack"] - stack).abs().max()),
+              float((served["logprobs"] - want_logp).abs().max())) / scale
+    top2 = want_logp.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err * scale
+    agree = served["pred"].long() == want_logp.argmax(-1)
+    if served_launches != 1 or not err <= SERVE_TOL or not bool(
+            agree[clear].all()):
+        raise AssertionError(f"22c served: {served_launches} log-STFT "
+                             f"launches, error {err:.3e}, predictions "
+                             f"{int(agree.sum())}/{BATCH} as the eval's")
+    ms = []
+    for _ in range(SERVE_TIMED):
+        tic = time.perf_counter()
+        serve(*inputs)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - tic) * 1e3)
+    log(f"[serve] {card}: export --batch sym --device cuda {export_s:.1f} s "
+        f"({os.path.getsize(os.path.join(out_dir, 'serving.pt2')) / 1e6:.1f}"
+        f" MB); served batch of {BATCH} ms {', '.join(f'{m:.2f}' for m in ms)}"
+        f" (median {statistics.median(ms):.2f}); {served_launches} log-STFT "
+        f"launch inside the served program; against the eval step within "
+        f"{err:.3e} of the logits' scale, predictions "
+        f"{int(agree.sum())}/{BATCH} equal ({int(clear.sum())} clear of a "
+        f"tie)")
+    del state, served, evaluated, serve
+    torch.cuda.empty_cache()
+    return cs.launch_log_spectrogram.launches
+
+
+def _preprocess_cremad_audio(device):
+    """22d: ``tools/preprocess.py cremad-audio`` on fabricated wavs on the
+    card against the CPU, each pickle within DISK_SPEC_TOL of its largest
+    entry."""
+    import pickle
+
+    from multimodal_clinical_tpu_torch.benchmarks.disk_fixture import (
+        wav_bytes, wave_pool,
+    )
+    from multimodal_clinical_tpu_torch.tools import preprocess
+
+    work = SWITCH_DIR / "preprocess"
+    (work / "wav").mkdir(parents=True)
+    for i, pcm in enumerate(wave_pool(7, PREPROCESS_CLIPS, 2.5)):
+        (work / "wav" / f"clip{i}.wav").write_bytes(wav_bytes(pcm))
+    for side, dev in (("card", str(device)), ("cpu", "cpu")):
+        preprocess.main(["cremad-audio", "--wav-dir", str(work / "wav"),
+                         "--out", str(work / side), "--batch-size", "4",
+                         "--device", dev])
+    worst = 0.0
+    for i in range(PREPROCESS_CLIPS):
+        got, want = (pickle.loads((work / side / f"clip{i}.pkl").read_bytes())
+                     for side in ("card", "cpu"))
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        if got.shape != want.shape or not err <= DISK_SPEC_TOL:
+            raise AssertionError(f"22d clip{i}: {got.shape} {want.shape}, "
+                                 f"{err:.3e}")
+        worst = max(worst, err)
+    log(f"[preprocess] cremad-audio, {PREPROCESS_CLIPS} wavs in batches of "
+        f"4: the card's pickles against the CPU's within {worst:.2e} of "
+        f"each one's largest entry")
+
+
+def phase_switches(device, card: str, kernels):
+    """Phase 22: the tower switches and the tools.  (a) the fixture under
+    remat and the space-to-depth stem, narrow card-against-CPU runs and
+    the narrow switched encoder under "convs"; (b) the resnet50 Bottleneck
+    tower with bn_fused; (c) predict, export and the served program; (d)
+    preprocess cremad-audio.  Each path's launch counts are set to 0 just
+    before it runs and read just after."""
+    t0 = time.perf_counter()
+    shutil.rmtree(SWITCH_DIR, ignore_errors=True)
+    try:
+        narrow = _switches_card_against_cpu(device)
+        with _torch_set(*TORCH_DEFAULTS):
+            remat, pool_shapes = _remat_fixture(device, card)
+            remat.update(narrow)
+            bottleneck = _bottleneck_bn_fused(device, card)
+            serve = {"log_spectrogram": _serve(device, card)}
+            _preprocess_cremad_audio(device)
+    finally:
+        shutil.rmtree(SWITCH_DIR, ignore_errors=True)
+    for entry in kernels:
+        paths = entry.setdefault("launches_by_path", {})
+        name = entry["name"]
+        paths["remat"] = remat.get(name, 0)
+        paths["bottleneck_bn_fused"] = bottleneck.get(name, 0)
+        paths["serve"] = serve.get(name, 0)
+        if name in ("maxpool_fwd", "maxpool_bwd"):
+            entry.setdefault("checked_shapes_by_path", {})[
+                "remat"] = pool_shapes
+    log(f"[switches] launches of every TPU kernel: remat {dict(remat)}; "
+        f"bottleneck_bn_fused {bottleneck}; serve {serve}; phase 22 took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 @contextlib.contextmanager
 def _phase_time(name: str, seconds: dict):
     """Adds the block's wall seconds to ``seconds[name]`` and logs them."""
@@ -4904,6 +5364,8 @@ def main() -> int:
         phase_food101_legacy(device, card, kernels)
     with _phase_time("21", seconds):
         phase_multiseed(device, card, kernels)
+    with _phase_time("22", seconds):
+        phase_switches(device, card, kernels)
     log(f"[time] every phase, wall s: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
         f"the script so far {time.perf_counter() - t0:.1f} s")
     missing = [e["name"] for e in kernels if not e["launches"]]
@@ -4919,6 +5381,14 @@ def main() -> int:
             sweep[n].get("multiseed_narrow") for n in (
                 "bn_sums", "bn_bwd_sums", "maxpool_fwd", "maxpool_bwd")):
         raise AssertionError("a kernel of the sweep did not launch there")
+    # rows 1-5 on phase 22's paths
+    if not all(sweep[n]["remat"] for n in (
+            "log_spectrogram", "bn_sums", "bn_bwd_sums", "maxpool_fwd",
+            "maxpool_bwd")) or not all(
+            sweep[n]["bottleneck_bn_fused"]
+            for n in ("bn_sums", "bn_bwd_sums")) or not sweep[
+                "log_spectrogram"]["serve"]:
+        raise AssertionError("a kernel of phase 22 did not launch there")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

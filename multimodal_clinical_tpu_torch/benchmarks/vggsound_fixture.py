@@ -25,7 +25,9 @@ from .vggsound import device_preprocess
 
 
 def build_vggsound_bench(batch: int = 224, num_classes: int = 309, *,
-                         pool_kernel: str = "xla", device="cuda",
+                         pool_kernel: str = "xla",
+                         stem_space_to_depth: bool = False,
+                         remat: Optional[str] = None, device="cuda",
                          frames_bf16: bool = True,
                          num_frames: int = 4, image_size: int = 224,
                          samples: int = 80000, width: int = 64,
@@ -35,7 +37,9 @@ def build_vggsound_bench(batch: int = 224, num_classes: int = 309, *,
     sizes default to the reference geometry; the tests and the card-against-
     CPU check shrink them and compute in fp32.  ``frames_bf16`` mirrors the
     production loader's transfer cast; ``pool_kernel="pallas"`` is the
-    towers' stored-index max-pool (see ``models/resnet.py``)."""
+    towers' stored-index max-pool, ``stem_space_to_depth`` their
+    space-to-depth stem and ``remat`` their block recompute (see
+    ``models/resnet.py``)."""
     device = resolve_device(device)
     rng = np.random.default_rng(0)
     wave = rng.normal(scale=0.1, size=(batch, samples)).astype(np.float32)
@@ -47,7 +51,8 @@ def build_vggsound_bench(batch: int = 224, num_classes: int = 309, *,
                            use_scheduler=False, seed=0)
     spec = ModelSpec(
         module=CremadFusionNet(num_classes, dtype=dtype, width=width,
-                               pool_kernel=pool_kernel),
+                               pool_kernel=pool_kernel, remat=remat,
+                               stem_space_to_depth=stem_space_to_depth),
         contract="jprobas",
         device_preprocess=device_preprocess,
     )

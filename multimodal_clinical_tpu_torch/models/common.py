@@ -84,7 +84,9 @@ class BatchNormBase(nn.Module):
     N(1, ``scale_std``), bias 0: N(1, 0.02) in the scratch ResNet
     (cremad/backbone.py:136-142), ones where ``scale_std`` is 0 (the flax
     default, LeNet's).  ``dtype`` is the compute dtype; subclasses define
-    ``forward``."""
+    ``forward``, which moves the running statistics in a training pass
+    unless ``update_running`` is off (a block's recompute under
+    ``frozen_running_stats``)."""
 
     def __init__(self, features: int, dtype: Optional[torch.dtype] = None,
                  scale_std: float = 0.02):
@@ -93,6 +95,7 @@ class BatchNormBase(nn.Module):
         self.scale_std = scale_std
         self.momentum = 0.1
         self.eps = 1e-5
+        self.update_running = True
         self.weight = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -133,6 +136,8 @@ class TorchBatchNorm(BatchNormBase):
         var = torch.zeros_like(self.running_var)
         y = batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
                        self.eps)
+        if not self.update_running:
+            return y.to(out_dtype)
         with torch.no_grad():
             m = x.numel() // c
             biased = var * ((m - 1) / m)
@@ -164,6 +169,8 @@ class FusedBatchNorm(BatchNormBase):
             return y.movedim(-1, 1)
         y, mean, var = batch_norm_train_stats(x, self.weight, self.bias,
                                               self.eps)
+        if not self.update_running:
+            return y.movedim(-1, 1)
         with torch.no_grad():
             m = x.numel() // x.shape[-1]
             self.running_mean.mul_(1.0 - self.momentum).add_(
@@ -171,6 +178,21 @@ class FusedBatchNorm(BatchNormBase):
             self.running_var.mul_(1.0 - self.momentum).add_(
                 var * (m / max(m - 1, 1)), alpha=self.momentum)
         return y.movedim(-1, 1)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Inside this block no BatchNorm of ``module`` moves its running
+    statistics: a checkpointed block's recompute runs its forward a second
+    time for the same step."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNormBase)]
+    for m in norms:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_running = True
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

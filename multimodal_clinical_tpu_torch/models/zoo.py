@@ -36,17 +36,19 @@ class CremadFusionNet(nn.Module):
     folded into the batch for the visual tower (backbone.py:178-181) and
     pooled jointly with space afterwards (joint_model.py:43-50).  ``width``
     is the stem width of both towers (64 in the reference; the tests narrow
-    it).  ``pool_kernel`` is the towers' stem max-pool (see
-    ``ResNetEncoder``).
+    it).  ``pool_kernel``, ``remat`` and ``stem_space_to_depth`` are the
+    towers' switches (see ``ResNetEncoder``).
     """
 
     def __init__(self, num_classes: int, dtype: Optional[torch.dtype] = None,
-                 width: int = 64, pool_kernel: str = "xla"):
+                 width: int = 64, pool_kernel: str = "xla",
+                 remat: Optional[str] = None,
+                 stem_space_to_depth: bool = False):
         super().__init__()
-        self.x1_model = ResNetEncoder(1, width=width, dtype=dtype,
-                                      pool_kernel=pool_kernel)
-        self.x2_model = ResNetEncoder(3, width=width, dtype=dtype,
-                                      pool_kernel=pool_kernel)
+        switches = dict(width=width, dtype=dtype, pool_kernel=pool_kernel,
+                        remat=remat, stem_space_to_depth=stem_space_to_depth)
+        self.x1_model = ResNetEncoder(1, **switches)
+        self.x2_model = ResNetEncoder(3, **switches)
         self.x1_classifier = TorchDense(8 * width, num_classes, dtype)
         self.x2_classifier = TorchDense(8 * width, num_classes, dtype)
 

@@ -119,11 +119,38 @@ def launch_log_spectrogram(waveform: torch.Tensor, n_fft: int = 256,
 launch_log_spectrogram.launches = 0
 
 
-def log_spectrogram(waveform: torch.Tensor, n_fft: int = 256, hop: int = 128,
-                    eps: float = 1e-7) -> torch.Tensor:
-    """(B, N) waveform -> (B, n_fft//2 + 1, T) fp32 log-|STFT|: the kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
-    if waveform.device.type == "cpu":
-        return plain.log_spectrogram(waveform, n_fft=n_fft, hop=hop, eps=eps)
+# ``mmct::log_spectrogram``, a registered operator, so that a traced or
+# exported program (``torch.export``, ``tools/export.py``) records the
+# kernel as one node: a ``ctypes`` launch cannot take the fake tensors a
+# trace runs on.  Importing this module registers it; nothing is built
+# until the CUDA implementation first runs.
+@torch.library.custom_op("mmct::log_spectrogram", mutates_args=(),
+                         device_types="cpu")
+def _log_spectrogram_op(waveform: torch.Tensor, n_fft: int, hop: int,
+                        eps: float) -> torch.Tensor:
+    return plain.log_spectrogram(waveform, n_fft=n_fft, hop=hop, eps=eps)
+
+
+@_log_spectrogram_op.register_kernel("cuda")
+def _log_spectrogram_cuda(waveform: torch.Tensor, n_fft: int, hop: int,
+                          eps: float) -> torch.Tensor:
     return launch_log_spectrogram(waveform.float().contiguous(), n_fft=n_fft,
                                   hop=hop, eps=eps)
+
+
+@_log_spectrogram_op.register_fake
+def _log_spectrogram_fake(waveform: torch.Tensor, n_fft: int, hop: int,
+                          eps: float) -> torch.Tensor:
+    b, n = waveform.shape
+    return waveform.new_empty((b, n_fft // 2 + 1,
+                               plain.num_frames(n, n_fft, hop)),
+                              dtype=torch.float32)
+
+
+def log_spectrogram(waveform: torch.Tensor, n_fft: int = 256, hop: int = 128,
+                    eps: float = 1e-7) -> torch.Tensor:
+    """(B, N) waveform -> (B, n_fft//2 + 1, T) fp32 log-|STFT| through
+    ``torch.ops.mmct.log_spectrogram``: the kernel for a CUDA tensor, the
+    plain version for a CPU tensor, and no implementation for any other
+    device."""
+    return torch.ops.mmct.log_spectrogram(waveform, n_fft, hop, eps)

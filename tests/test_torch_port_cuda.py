@@ -674,3 +674,56 @@ def test_disk_batches_through_the_loader_equal_their_gathers(tmp_path):
             assert got.is_cuda
             np.testing.assert_array_equal(got[:len(chunk)].cpu().numpy(),
                                           arr, err_msg=key)
+
+
+def test_log_spectrogram_op_launches_the_kernel_in_an_exported_program():
+    """``mmct::log_spectrogram`` on a CUDA tensor is the kernel, once a
+    call, and so it stays inside a ``torch.export`` program."""
+    class Front(torch.nn.Module):
+        def forward(self, wave):
+            return cuda_spectrogram.log_spectrogram(wave).mean(dim=-1)
+
+    wave = torch.randn(3, 16000, device="cuda")
+    launches = cuda_spectrogram.launch_log_spectrogram.launches
+    direct = Front()(wave)
+    assert cuda_spectrogram.launch_log_spectrogram.launches == launches + 1
+    program = torch.export.export(
+        Front(), (wave,),
+        dynamic_shapes=({0: torch.export.Dim("b", min=1)},))
+    assert torch.ops.mmct.log_spectrogram.default in [
+        n.target for n in program.graph.nodes]
+    launches = cuda_spectrogram.launch_log_spectrogram.launches
+    served = program.module()(wave[:1])
+    assert cuda_spectrogram.launch_log_spectrogram.launches == launches + 1
+    torch.testing.assert_close(served, direct[:1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("remat", ["convs", "none"])
+def test_remat_switched_encoder_on_the_card_matches_no_remat(remat):
+    """A narrow encoder with both kernel switches, fp32: the recompute
+    launches the in-block BN sums again (19 of the 20 BNs under "convs"
+    and "none" alike: the stem's BN is outside it) and its gradients and
+    running buffers equal the no-remat pass's to 1e-5 of each tensor's
+    largest entry (cuDNN's weight gradients may add in another order)."""
+    from multimodal_clinical_tpu_torch.models.common import init_weights
+    from multimodal_clinical_tpu_torch.models.resnet import ResNetEncoder
+
+    x = torch.randn(4, 48, 48, 1, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    out = {}
+    for policy in (None, remat):
+        enc = ResNetEncoder(1, width=8, bn_fused=True, pool_kernel="pallas",
+                            remat=policy)
+        init_weights(enc, torch.Generator().manual_seed(0))
+        enc = enc.to("cuda", memory_format=torch.channels_last)
+        before = cuda_fused_bn.launch_channel_sums.launches
+        enc(x).square().sum().backward()
+        out[policy] = (cuda_fused_bn.launch_channel_sums.launches - before,
+                       {k: p.grad for k, p in enc.named_parameters()},
+                       {k: v for k, v in enc.state_dict().items()
+                        if "running" in k})
+    assert out[None][0] == 20 and out[remat][0] == 20 + 19
+    for got, want in zip(out[remat][1:], out[None][1:]):
+        for key, ref in want.items():
+            err = float((got[key] - ref).abs().max())
+            assert err <= 1e-5 * float(ref.abs().max()), key

@@ -58,9 +58,11 @@ def _imported_roots(path):
 
 
 # PIL decodes frames where the JAX package uses it (its
-# ``data/imageops.py``) and encodes the disk corpora's JPEGs; in both only
-# inside the functions that need it, so no import of the port loads it
-PIL_MODULES = {"data/imageops.py", "benchmarks/disk_fixture.py"}
+# ``data/imageops.py`` and ``tools/preprocess.py``) and encodes the disk
+# corpora's and the parity fixtures' JPEGs; in each only inside the
+# functions that need it, so no import of the port loads it
+PIL_MODULES = {"data/imageops.py", "benchmarks/disk_fixture.py",
+               "tools/preprocess.py", "tools/parity_run.py"}
 
 
 @pytest.mark.parametrize("rel", MODULES)
@@ -68,6 +70,39 @@ def test_module_imports_nothing_of_jax(rel):
     allowed = {"PIL"} if rel in PIL_MODULES else set()
     for name in _imported_roots(PACKAGE / rel):
         assert name not in FORBIDDEN - allowed, (rel, name)
+
+
+def test_op_registration_loads_no_gpu_toolchain():
+    """Importing the port registers ``mmct::log_spectrogram`` and builds
+    nothing: no nvcc run, no library loaded, no ``triton`` imported."""
+    code = ("import sys, subprocess, torch\n"
+            "def refuse(*a, **k):\n"
+            "    raise AssertionError(f'spawned {a[0] if a else k}')\n"
+            "subprocess.run = subprocess.Popen = refuse\n"
+            "from multimodal_clinical_tpu_torch.benchmarks import vggsound\n"
+            "from multimodal_clinical_tpu_torch.ops import "
+            "cuda_spectrogram\n"
+            "assert torch.ops.mmct.log_spectrogram.default is not None\n"
+            "assert cuda_spectrogram._lib.cache_info().currsize == 0\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] == 'triton']\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=PACKAGE.parent)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_log_spectrogram_op_cuda_key_is_the_kernel():
+    """The operator's CPU implementation is the plain version; its CUDA
+    implementation is the kernel's wrapper, which raises for a tensor it
+    cannot launch on rather than fall back to the plain version."""
+    wave = torch.randn(2, 3000)
+    from multimodal_clinical_tpu_torch.ops import spectrogram
+
+    assert torch.equal(cuda_spectrogram.log_spectrogram(wave),
+                       spectrogram.log_spectrogram(wave))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        torch.ops.mmct.log_spectrogram.default._op_dk(
+            torch._C.DispatchKey.CUDA, wave, 256, 128, 1e-7)
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -167,6 +202,24 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(no_cuda):
         multiseed.MultiSeedLoader([], 1, [])
 
 
+@pytest.mark.parametrize("tool,argv", [
+    ("predict", ["--dir", "mimic", "--ckpt", "{tmp}"]),
+    ("export", ["--dir", "mimic", "--out", "{tmp}"]),
+    ("noise_sweep", ["--out-dir", "{tmp}"]),
+    ("parity_run", ["--dir", "mimic", "--allow-synthetic"]),
+    ("preprocess", ["ave-audio", "--data-dir", "{tmp}"]),
+])
+def test_tools_run_on_cuda_unless_given_cpu(no_cuda, tmp_path, tool, argv):
+    """Each tool that uses the device asks for CUDA by default and raises
+    without it, before it reads or trains anything."""
+    import importlib
+
+    main = importlib.import_module(
+        f"multimodal_clinical_tpu_torch.tools.{tool}").main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([a.format(tmp=tmp_path) for a in argv])
+
+
 def test_vggsound_fixture_steps_on_the_cpu():
     """The fixture at a tiny size, on the CPU: two train steps and one eval
     step through the plain spectrogram, no kernel launch.  fp32: PyTorch's
@@ -204,8 +257,13 @@ def test_fixture_weights_are_drawn_from_the_seed():
     (dict(stem_space_to_depth=True), "item 20"),
 ])
 def test_resnet_switches_not_ported_yet_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        ResNetEncoder(1, width=8, **kwargs)
+    """The switch that raised until ROADMAP's ``match`` was ported builds
+    now, with the default path's state_dict names; what still raises is a
+    remat policy the JAX package does not have."""
+    enc = ResNetEncoder(1, width=8, **kwargs)
+    assert set(enc.state_dict()) == set(ResNetEncoder(1, width=8).state_dict())
+    with pytest.raises(ValueError, match="remat"):
+        ResNetEncoder(1, width=8, remat="all", **kwargs)
 
 
 def test_unknown_pool_kernel_raises():
@@ -213,8 +271,10 @@ def test_unknown_pool_kernel_raises():
         ResNetEncoder(1, width=8, pool_kernel="triton")
 
 
-@pytest.mark.parametrize("kwargs", [dict(bn_fused=True),
-                                    dict(pool_kernel="pallas")])
+@pytest.mark.parametrize("kwargs", [
+    dict(bn_fused=True), dict(pool_kernel="pallas"),
+    dict(stem_space_to_depth=True), dict(remat="convs"), dict(remat="none"),
+])
 def test_resnet_switches_build(kwargs):
     """Each switch builds its modules, with the default path's state_dict
     names, and the encoder runs a train-mode pass on the CPU."""
