@@ -235,7 +235,30 @@ Phases, each of which raises on failure:
    --batch sym`` and the loaded artifact on one test batch of 224 (the
    log-STFT launched inside the served program; within SERVE_TOL of the
    eval step's outputs); (d) ``tools/preprocess.py cremad-audio`` on the
-   card against the CPU.
+   card against the CPU; (e) one step of the multi-seed sweep (seeds 0
+   and 1) of the fixture at batch 224 under ``remat="convs"``, each
+   block's checkpoint outside the sweep's vmap: its ms and peak GiB;
+23. the data axis of ``parallel/``: (a) the fixture at batch 224 (309
+   classes, bf16, ``bn_fused``, the stored-index pool) for 4 steps without
+   a process group, then in a group of one over NCCL
+   (``initialize_if_requested``, a ``DeviceMesh`` built) under data
+   parallelism and under ``fsdp``: each bit-equal to the run without a
+   group (no collective at world size 1; the JAX rule shards no leaf over
+   a data axis of 1), with its step ms and peak GiB; (b) two ranks sharing
+   the card over gloo, each a ``python3 chip_smoke.py --dist-rank R``
+   subprocess, 112 rows a rank of a global 224, fp32 with TF32 off and
+   deterministic cuDNN: the VGGSound CLI (``__main__.run_training``) for
+   one epoch on phase 12's waveform rows under data parallelism, under
+   ``fsdp`` and without SpecAugment, then the fixture's 4 steps on the
+   rank's rows, each way, then in bf16 at the default settings; beside
+   them in this process the same CLI epochs and fp32 fixture steps on one
+   rank, and a bf16 witness (23a's run with the batch's rows permuted).
+   The ranks' summaries must agree, FSDP must equal data parallelism bit
+   for bit, rank 0 alone must have written, every step's rows on the two
+   ranks must be one process's, two ranks must agree with one within
+   DIST_LOSS_RTOL and DIST_UPDATE_TOL (fp32) and within DIST_BF16_WITNESS
+   times the witness's gap (bf16); then rows 1-5 are held against their
+   plain versions at every (shape, dtype) that rank 0's runs gave them.
 
 The CLI runs as a ``python3 -m`` subprocess once per family (phase 11 for
 VGGSound, Crema-D and AVE, 17c for the small nets, 20d for Food101), and
@@ -249,10 +272,13 @@ kernels' line gives each kernel's launches on the main path as
 AV-MNIST's, MIMIC's, MUsTARD's, Enrico's, FakeNews's, Food101's and the
 Food101 legacy pair's; ``multiseed`` for phase 21b's sweeps and
 ``multiseed_narrow`` for 21a's card sweeps; ``remat``,
-``bottleneck_bn_fused`` and ``serve`` for phase 22a-c); the
+``bottleneck_bn_fused``, ``serve`` and ``remat_sweep`` for phase 22a-c
+and e; ``dist`` for rank 0's runs in phase 23b, ``dist_world1`` for 23a's
+data-parallel run); the
 max-pool's entries list the shapes checked on the phase 14 path and on
 phase 21b's Crema-D sweep (``multiseed``) and on phase 22a's fixture
-(``remat``) under ``checked_shapes_by_path``.
+(``remat``) under ``checked_shapes_by_path``, and rows 1-5 the (shape,
+dtype) pairs checked on the ``dist`` path.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints no
@@ -978,45 +1004,59 @@ def _all_launchers():
 
 
 @contextlib.contextmanager
-def _recording_calls():
+def _recording_calls(dtypes: bool = False):
     """While open, every call of a switch's wrapper appends the shape it
     was given to ``calls[name]``: (M, C) of the BN sums' (..., C) input,
     the NHWC input map (B, H, W, C) of the max-pool, forward and backward.
-    The wrappers are wrapped in their modules, where the ops look them up,
-    and restored on exit."""
+    With ``dtypes`` each entry is (shape, the input's dtype name), and the
+    log-STFT's (B, samples) waveforms are recorded too.  The wrappers are
+    wrapped in their modules, where the ops look them up, and restored on
+    exit."""
     from multimodal_clinical_tpu_torch.ops import cuda_fused_bn as cfb
     from multimodal_clinical_tpu_torch.ops import cuda_maxpool as cmp
+    from multimodal_clinical_tpu_torch.ops import cuda_spectrogram as cs
 
     def bn_shape(x):
         return x.numel() // x.shape[-1], x.shape[-1]
 
+    # name: (module, wrapper, the call's shape, the tensor whose dtype counts)
     shape_of = {
-        "bn_sums": (cfb, "launch_channel_sums", bn_shape),
+        "bn_sums": (cfb, "launch_channel_sums", bn_shape, lambda x: x),
         "bn_bwd_sums": (cfb, "launch_bwd_sums",
-                        lambda dy, x, mean, rstd: bn_shape(x)),
-        "maxpool_fwd": (cmp, "launch_pool_fwd", lambda x: tuple(x.shape)),
+                        lambda dy, x, mean, rstd: bn_shape(x),
+                        lambda dy, x, mean, rstd: x),
+        "maxpool_fwd": (cmp, "launch_pool_fwd", lambda x: tuple(x.shape),
+                        lambda x: x),
         "maxpool_bwd": (cmp, "launch_pool_bwd", lambda dy, idx, h, w: (
-            dy.shape[0], h, w, dy.shape[3])),
+            dy.shape[0], h, w, dy.shape[3]), lambda dy, idx, h, w: dy),
     }
+    if dtypes:
+        shape_of["log_spectrogram"] = (
+            cs, "launch_log_spectrogram",
+            lambda wave, *a, **k: tuple(wave.shape), lambda wave, *a, **k: wave)
     calls = {name: [] for name in shape_of}
 
-    def recording(name, fn, shape):
-        def wrapper(*args):
-            calls[name].append(shape(*args))
-            return fn(*args)
+    def recording(name, fn, shape, tensor):
+        def wrapper(*args, **kwargs):
+            got = shape(*args, **kwargs)
+            if dtypes:
+                got = (got, str(tensor(*args, **kwargs).dtype).split(".")[-1])
+            calls[name].append(got)
+            return fn(*args, **kwargs)
         # the wrapped function counts its launch on the name its module
         # binds, which is this wrapper while recording
         wrapper.launches = 0
         return wrapper
 
     originals = {name: getattr(module, attr)
-                 for name, (module, attr, _) in shape_of.items()}
+                 for name, (module, attr, _, _) in shape_of.items()}
     try:
-        for name, (module, attr, shape) in shape_of.items():
-            setattr(module, attr, recording(name, originals[name], shape))
+        for name, (module, attr, shape, tensor) in shape_of.items():
+            setattr(module, attr, recording(name, originals[name], shape,
+                                            tensor))
         yield calls
     finally:
-        for name, (module, attr, _) in shape_of.items():
+        for name, (module, attr, _, _) in shape_of.items():
             setattr(module, attr, originals[name])
 
 
@@ -2185,11 +2225,11 @@ def phase_full_width(device, card: str, kernels):
             entry.setdefault("checked_shapes_by_path", {}).update(pool_shapes)
 
 
-def _check_path_pools(calls, what: str):
+def _check_path_pools(calls, what: str, dtype=torch.bfloat16):
     """Both max-pool kernels against their plain versions (exactly) at
     every NHWC shape that a path's run gave them (``calls``, recorded by
-    ``_recording_calls``), on a post-ReLU bf16 map as the stem gives;
-    returns the shapes."""
+    ``_recording_calls``), on a post-ReLU map as the stem gives, bf16 or
+    ``dtype``; returns the shapes."""
     fwd, bwd = (collections.Counter(calls[n])
                 for n in ("maxpool_fwd", "maxpool_bwd"))
     if fwd != bwd or not fwd:
@@ -2197,7 +2237,7 @@ def _check_path_pools(calls, what: str):
                              f"maxpool_bwd saw {dict(bwd)}")
     for shape in sorted(fwd):
         gen = torch.Generator(device="cuda").manual_seed(3)
-        x = torch.randn(shape, device="cuda", dtype=torch.bfloat16,
+        x = torch.randn(shape, device="cuda", dtype=dtype,
                         generator=gen).clamp_min_(0)
         _check_pool(x, f"{what} {shape}")
         del x
@@ -5285,6 +5325,7 @@ def phase_switches(device, card: str, kernels):
             bottleneck = _bottleneck_bn_fused(device, card)
             serve = {"log_spectrogram": _serve(device, card)}
             _preprocess_cremad_audio(device)
+            remat_sweep = _remat_sweep(device, card)
     finally:
         shutil.rmtree(SWITCH_DIR, ignore_errors=True)
     for entry in kernels:
@@ -5293,12 +5334,610 @@ def phase_switches(device, card: str, kernels):
         paths["remat"] = remat.get(name, 0)
         paths["bottleneck_bn_fused"] = bottleneck.get(name, 0)
         paths["serve"] = serve.get(name, 0)
+        paths["remat_sweep"] = remat_sweep.get(name, 0)
         if name in ("maxpool_fwd", "maxpool_bwd"):
             entry.setdefault("checked_shapes_by_path", {})[
                 "remat"] = pool_shapes
     log(f"[switches] launches of every TPU kernel: remat {dict(remat)}; "
         f"bottleneck_bn_fused {bottleneck}; serve {serve}; phase 22 took "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def _remat_sweep(device, card: str):
+    """22e: one step of the multi-seed sweep (seeds 0 and 1) of the fixture
+    at batch 224 (309 classes, bf16, the stored-index pool) under
+    ``remat="convs"``, each block's checkpoint outside the sweep's vmap,
+    after one warm-up step: its ms and peak GiB; returns the launches of
+    the timed step."""
+    from multimodal_clinical_tpu_torch.benchmarks.vggsound_fixture import (
+        build_vggsound_bench,
+    )
+    from multimodal_clinical_tpu_torch.engine.multiseed import (
+        create_multiseed_state, make_multiseed_steps,
+    )
+
+    # the sweep stacks the seeds' weights from a module on the CPU
+    _, _, batch, spec = build_vggsound_bench(
+        BATCH, CLASSES, pool_kernel="pallas", remat="convs", device="cpu")
+    args = SimpleNamespace(num_classes=CLASSES, batch_size=BATCH,
+                           learning_rate=1e-2, use_scheduler=False,
+                           num_epochs=60, seed=0)
+    state = create_multiseed_state(spec, args, [0, 1], steps_per_epoch=100,
+                                   device=device)
+    train, _ = make_multiseed_steps(spec)
+    stacked = {k: torch.stack([v, v]).to(device) for k, v in batch.items()}
+    del batch
+    state, metrics = train(state, stacked)  # warm-up
+    torch.cuda.synchronize()
+    launchers = _all_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    tic = time.perf_counter()
+    state, metrics = train(state, stacked)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - tic) * 1e3
+    launches = {n: fn.launches for n, fn in launchers.items()}
+    losses = metrics["train_loss"].tolist()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"22e non-finite losses {losses}")
+    if launches != {"log_spectrogram": 1, "bn_sums": 0, "bn_bwd_sums": 0,
+                    "maxpool_fwd": 2, "maxpool_bwd": 2}:
+        raise AssertionError(f"22e launches {launches}")
+    log(f"[switches] 22e {card}: one sweep step of 2 seeds under "
+        f"remat='convs' at batch {BATCH}: {ms:.2f} ms, peak memory "
+        f"{peak:.2f} GiB, losses {losses}, launches {launches}")
+    del state, stacked, train
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 23: the data axis of parallel/ -------------------------------------
+
+DIST_DIR = WORK_DIR / "dist"
+DIST_STEPS = 4  # fixture steps of 23a and of each rank in 23b
+# 23b's one-epoch CLI runs: two train steps of the global batch, one val
+# and one test step
+DIST_TRAIN_ROWS, DIST_EVAL_ROWS = 2 * BATCH, BATCH
+# 23b, two ranks against one process in fp32 with TF32 off: cuDNN picks
+# its algorithms for 112 rows and for 224, and the gradients are summed in
+# another order, so fp32 rounding parts them; it also breaks the
+# max-pool's ties (SpecAugment's bands zero whole stem windows) another
+# way, which routes a window's gradient elsewhere.  Losses are held to
+# DIST_LOSS_RTOL and the model's parameter change to DIST_UPDATE_TOL of
+# its norm (||delta_2 - delta_1|| / ||delta_1||; the fixture's 4 steps
+# 1.1e-2 apart measured on an H100 80GB HBM3): the fixture's steps, and
+# the CLI's epoch without SpecAugment (``dp_noaug``), where each global
+# batch holds the same samples as one process's in another row order.
+# With SpecAugment (the CLI's own path) a sample sits at another row of
+# the global batch than in one process (each rank feeds its strided shard
+# of the stream, as the JAX package's hosts do) and gets another row's
+# bands: there the losses are held to DIST_CLI_RTOL and the parameters are
+# not compared, and every step's rows on the two ranks together must be
+# one process's rows of that step.
+DIST_LOSS_RTOL = 1e-4
+DIST_UPDATE_TOL = 5e-2
+DIST_CLI_RTOL = 2e-3
+# 23b's fixture in bf16 on two ranks, against one process (23a's run
+# without a group): bf16 rounds every op's result, so the two runs part
+# wherever a sum's order differs, and ReLU and max-pool decisions within
+# bf16 rounding of their thresholds flip.  The witness is the same one
+# process with the batch's rows permuted after the preprocess (every
+# sample keeps its SpecAugment bands): the same steps, its sums in another
+# order.  Losses and parameter changes (after the first step and after
+# the last) are held to DIST_BF16_WITNESS times the witness's gap, or
+# DIST_BF16_FLOOR where that is smaller.
+DIST_BF16_WITNESS, DIST_BF16_FLOOR = 4.0, 1e-5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(on: bool):
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _dist_fixture(device, rows=None, fsdp: bool = False,
+                  fp32: bool = False, permute=None):
+    """DIST_STEPS steps of the fixture at batch 224 (309 classes, bf16 or
+    with ``fp32`` fp32, ``bn_fused``, the stored-index pool) through
+    ``make_train_step``, on ``rows`` of every batch (a rank's slice) or all
+    of them; FSDP over the data axis with ``fsdp``; with ``permute`` the
+    preprocessed batch's rows in that order.  Returns the losses, the
+    median step after the first, the peak, the launches and the initial,
+    first-step and final parameters."""
+    from multimodal_clinical_tpu_torch.benchmarks.vggsound_fixture import (
+        build_vggsound_bench,
+    )
+    from multimodal_clinical_tpu_torch.engine.checkpoint import state_to_tree
+    from multimodal_clinical_tpu_torch.engine.steps import make_train_step
+    from multimodal_clinical_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_clinical_tpu_torch.parallel.sharding import place_state
+
+    train_step, state, batch, spec = build_vggsound_bench(
+        BATCH, CLASSES, pool_kernel="pallas", bn_fused=True, device=device,
+        **(dict(dtype=None, frames_bf16=False) if fp32 else {}))
+    if permute is not None:
+        import dataclasses
+
+        def preprocess(b, gen, train, _pre=spec.device_preprocess):
+            return {k: v[permute.to(v.device)] for k, v in
+                    _pre(b, gen, train).items()}
+
+        train_step = make_train_step(dataclasses.replace(
+            spec, device_preprocess=preprocess))
+    if rows is not None:
+        batch = {k: v[rows].contiguous() for k, v in batch.items()}
+    init = {k: v.float().cpu() for k, v in state.model.state_dict().items()}
+    state = place_state(state, make_mesh(None, device.type), fsdp=fsdp)
+    sharded = 0 if state.fsdp is None else len(state.fsdp.leaves)
+    launchers = _all_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms, first = [], [], None
+    for _ in range(DIST_STEPS):
+        tic = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - tic) * 1e3)
+        losses.append(float(metrics["train_loss"]))
+        if first is None:
+            first = {k: v.float().cpu() for k, v in
+                     state_to_tree(state)["model"].items()}
+    launches = {n: fn.launches for n, fn in launchers.items()}
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    params = {k: v.float().cpu() for k, v in
+              state_to_tree(state)["model"].items()}
+    del train_step, state, batch
+    torch.cuda.empty_cache()
+    return dict(losses=losses, ms=statistics.median(step_ms[1:]),
+                step_ms=step_ms, peak=peak, launches=launches, first=first,
+                params=params, init=init, sharded=sharded)
+
+
+def _update_gap(got, want, init):
+    """Two runs' parameter changes apart: (the whole model's
+    ||delta_got - delta_want|| / ||delta_want||, the largest such ratio
+    of one tensor, that tensor's name), 2-norms."""
+    num = den = 0.0
+    worst = (0.0, "")
+    for key, w in want.items():
+        if "running" in key or "num_batches" in key:
+            continue
+        dw = (w - init[key]).double()
+        gap = float((got[key].double() - init[key].double() - dw).norm())
+        norm = float(dw.norm())
+        num, den = num + gap ** 2, den + norm ** 2
+        if norm > 0 and gap / norm > worst[0]:
+            worst = (gap / norm, key)
+    return (num / den) ** 0.5, worst[0], worst[1]
+
+
+def _fixture_gaps(run, base):
+    """(the largest relative loss gap, the whole model's parameter-change
+    gap after the first step, after the last) of two fixture runs."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                   base["losses"]))
+    return (loss, _update_gap(run["first"], base["first"], base["init"])[0],
+            _update_gap(run["params"], base["params"], base["init"])[0])
+
+
+def _dist_cli(tag: str, out: Path, device, extra=(), rank=None, addr=None,
+              augment: bool = True):
+    """The VGGSound CLI (``__main__.run_training``) for one epoch on
+    phase 12's waveform rows in fp32, its benchmark module's ``get_data``
+    substituted (and with ``augment`` off its spec's preprocess without
+    SpecAugment); with ``rank`` one of two ranks over ``addr``.  Returns
+    the summary, the trainer's writer flags, the ids of every train step's
+    rows and the final checkpoint's parameters."""
+    import dataclasses
+
+    from multimodal_clinical_tpu_torch import __main__ as cli
+    from multimodal_clinical_tpu_torch.benchmarks import vggsound
+    from multimodal_clinical_tpu_torch.engine import run
+
+    bundle = _waveform_bundle(DIST_TRAIN_ROWS, DIST_EVAL_ROWS)
+
+    def get_model_spec(args, n_train):
+        spec, opt = vggsound.get_model_spec(args, n_train)
+        if not augment:
+            spec = dataclasses.replace(
+                spec, device_preprocess=lambda b, gen, train:
+                vggsound.device_preprocess(b, gen, False))
+        return spec, opt
+
+    module = SimpleNamespace(get_data=lambda _: bundle,
+                             get_model_spec=get_model_spec)
+    argv = ["--dir", "vggsound", "--set", "num_epochs=1",
+            "--set", "compute_dtype=float32",
+            "--set", f"ckpt_dir={out / tag}",
+            "--set", f"data_path={out / 'none'}",
+            "--set", f"loader_workers={2 if rank is not None else 4}",
+            *extra]
+    if rank is not None:
+        argv += ["--set", f"dist_coordinator={addr}",
+                 "--set", "dist_num_processes=2",
+                 "--set", f"dist_process_id={rank}"]
+    seen = {"ids": []}
+    trainer_cls = run.Trainer
+
+    class Seen(trainer_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["trainer"] = self
+            if self.state.fsdp is None:
+                seen["init"] = {k: v.float().cpu() for k, v in
+                                self.state.model.state_dict().items()}
+            step = self.train_step
+
+            def recording(state, batch):
+                seen["ids"].append(batch["idx"].tolist())
+                return step(state, batch)
+
+            self.train_step = recording
+
+    get_benchmark, cli.get_benchmark = cli.get_benchmark, lambda _: module
+    run.Trainer = Seen
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        tic = time.perf_counter()
+        summary = cli.run_training(argv, device=device)
+        seconds = time.perf_counter() - tic
+    finally:
+        cli.get_benchmark, run.Trainer = get_benchmark, trainer_cls
+    trainer = seen["trainer"]
+    ckpt = sorted((out / tag / RUN_NAME / "ckpt").glob("last-*"))
+    params = None
+    if ckpt:
+        params = {k: v.float().cpu() for k, v in torch.load(
+            ckpt[-1] / "state.pt", map_location="cpu",
+            weights_only=True)["model"].items()}
+    return dict(summary=summary, seconds=seconds,
+                peak=torch.cuda.max_memory_allocated(device) / 2**30,
+                writes=(trainer.logger.write, trainer.ckpt._primary),
+                history=trainer.history, params=params, ids=seen["ids"],
+                init=seen.get("init"), fsdp=trainer.state.fsdp is not None)
+
+
+# 23b's CLI runs on each rank: (tag, --set arguments, SpecAugment on)
+DIST_CLI_RUNS = (("dp", (), True), ("fsdp", ("--set", "fsdp=True"), True),
+                 ("dp_noaug", (), False))
+
+
+def dist_rank_main(argv) -> int:
+    """One rank of phase 23b: ``python3 chip_smoke.py --dist-rank R
+    --dist-addr HOST:PORT --dist-out DIR``.  The VGGSound CLI for one
+    epoch under data parallelism, under FSDP and without SpecAugment, then
+    the fixture's steps on this rank's rows of each batch in fp32 (data
+    parallelism and FSDP) and in bf16; rank 0 records every kernel call's
+    shape and dtype.  Writes its results to ``DIR/rank{R}.pt``."""
+    from multimodal_clinical_tpu_torch.parallel import distributed
+    from multimodal_clinical_tpu_torch.parallel.mesh import (
+        batch_sharding, make_mesh,
+    )
+
+    rank, addr, out = int(argv[1]), argv[3], Path(argv[5])
+    device = torch.device("cuda", 0)  # the two ranks share the card
+    torch.cuda.set_device(device)
+    torch.empty(0, device=device)  # the CUDA context, before its counters
+    results = {}
+    with (_recording_calls(dtypes=True) if rank == 0
+          else contextlib.nullcontext({})) as calls:
+        launchers = _all_launchers()
+        # fp32 against one process (DIST_*_TOL); FSDP against data
+        # parallelism bit for bit: cuDNN's fp32 algorithms may sum in a
+        # run-dependent order otherwise
+        with _torch_set(False, False, torch.get_num_threads()), \
+                _cudnn_deterministic(True):
+            for tag, extra, augment in DIST_CLI_RUNS:
+                for fn in launchers.values():
+                    fn.launches = 0
+                res = _dist_cli(tag, out, device, extra, rank=rank,
+                                addr=addr, augment=augment)
+                res["launches"] = {n: fn.launches
+                                   for n, fn in launchers.items()}
+                results[tag] = res
+            rows = batch_sharding(make_mesh(None, device.type), BATCH)
+            results["fixture"] = _dist_fixture(device, rows, fp32=True)
+            results["fixture_fsdp"] = _dist_fixture(device, rows, fsdp=True,
+                                                    fp32=True)
+        # bf16 at the settings of 23a's run without a group
+        results["fixture_bf16"] = _dist_fixture(device, rows)
+    results["backend"] = distributed.backend()
+    results["calls"] = calls
+    torch.save(results, out / f"rank{rank}.pt")
+    distributed.shutdown()
+    return 0
+
+
+def _dist_world1(device, card: str):
+    """23a: the fixture's steps without a process group, then in a group
+    of one over NCCL (the port's ``initialize_if_requested``) under data
+    parallelism and under ``fsdp``; each must equal the run without a
+    group bit for bit: at world size 1 the port issues no collective, and
+    the JAX rule shards no leaf over a data axis of 1.  Returns the data-
+    parallel run's launches and the run without a group."""
+    from multimodal_clinical_tpu_torch.parallel import distributed
+    from multimodal_clinical_tpu_torch.parallel.mesh import make_mesh
+
+    alone = _dist_fixture(device)
+    args = SimpleNamespace(dist_coordinator=f"localhost:{_free_port()}",
+                           dist_num_processes=1, dist_process_id=0)
+    dev = distributed.initialize_if_requested(args, device)
+    try:
+        mesh = make_mesh(None, "cuda")
+        if (distributed.backend() != "nccl" or distributed.world_size() != 1
+                or mesh.device_mesh is None or mesh.data_group is not None):
+            raise AssertionError(f"23a group: {distributed.backend()}, "
+                                 f"{distributed.world_size()}, {mesh}")
+        runs = {"dp": _dist_fixture(dev), "fsdp": _dist_fixture(dev,
+                                                                 fsdp=True)}
+    finally:
+        distributed.shutdown()
+    for tag, run_ in runs.items():
+        if run_["losses"] != alone["losses"] or any(
+                not torch.equal(run_["params"][k], v)
+                for k, v in alone["params"].items()):
+            raise AssertionError(f"23a {tag}: losses {run_['losses']} "
+                                 f"against {alone['losses']} without a group")
+        if run_["sharded"]:
+            raise AssertionError(f"23a fsdp sharded {run_['sharded']} leaves")
+    for tag, run_ in (("no group", alone), *runs.items()):
+        log(f"[dist] 23a {card}: fixture at batch {BATCH} (bf16, bn_fused, "
+            f"the stored-index pool), {tag}: step median {run_['ms']:.2f} "
+            f"ms over {DIST_STEPS - 1} (each "
+            f"{', '.join(f'{m:.2f}' for m in run_['step_ms'])} with the "
+            f"warm-up), peak memory {run_['peak']:.2f} GiB, losses "
+            f"{run_['losses']}, launches {run_['launches']}")
+    log(f"[dist] 23a: data parallelism and fsdp in a group of one over NCCL "
+        f"equal the run without a group bit for bit (losses and every "
+        f"parameter); fsdp sharded no leaf")
+    return runs["dp"]["launches"], alone
+
+
+def _check_dist_shapes(calls):
+    """Rows 1-5 against their plain versions at every (shape, dtype) that
+    rank 0's runs in 23b gave them; returns each kernel's checked
+    shapes."""
+    from multimodal_clinical_tpu_torch.ops import cuda_spectrogram as cs
+    from multimodal_clinical_tpu_torch.ops import spectrogram as plain
+
+    bn = sorted(set(calls["bn_sums"]) | set(calls["bn_bwd_sums"]))
+    pools = sorted(set(calls["maxpool_fwd"]) | set(calls["maxpool_bwd"]))
+    waves = sorted(set(calls["log_spectrogram"]))
+    if not (bn and pools and waves):
+        raise AssertionError(f"23b recorded {bn}, {pools}, {waves}")
+    worst = [0.0, 0.0, 0.0]
+    for i, ((m, c), dtype) in enumerate(bn):
+        fwd, bwd = _check_bn(*_bn_case(m, c, getattr(torch, dtype), 200 + i),
+                             f"23b ({m}, {c}) {dtype}")
+        worst[:2] = [max(worst[0], fwd[1]), max(worst[1], bwd[1])]
+        torch.cuda.empty_cache()
+    for shape, dtype in pools:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn(shape, device="cuda", dtype=getattr(torch, dtype),
+                        generator=gen).clamp_min_(0)
+        _check_pool(x, f"23b {shape} {dtype}")
+        del x
+    for shape, _ in waves:
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        wave = torch.randn(shape, device="cuda", generator=gen).mul_(0.1)
+        worst[2] = max(worst[2], compare_spectrogram(
+            cs.launch_log_spectrogram(wave, 256, 128),
+            plain.log_spectrogram(wave, 256, 128))[1])
+        del wave
+    torch.cuda.empty_cache()
+    fmt = lambda entries: ", ".join(f"{tuple(s)} {d}" for s, d in entries)
+    log(f"[kernels] 23b, every shape rank 0's runs gave rows 1-5, against "
+        f"the plain versions: BN sums at {len(bn)} ({fmt(bn)}): forward "
+        f"within {worst[0]:.2e}, backward within {worst[1]:.2e} of the "
+        f"terms' magnitude, two launches bit-equal; max-pool at "
+        f"{len(pools)} ({fmt(pools)}): forward and backward equal; log-STFT "
+        f"at {fmt(waves)}: clear bins within {worst[2]:.3e}")
+    listed = lambda entries: [[list(s), d] for s, d in entries]
+    return {"bn_sums": listed(bn), "bn_bwd_sums": listed(bn),
+            "maxpool_fwd": listed(pools), "maxpool_bwd": listed(pools),
+            "log_spectrogram": listed(waves)}
+
+
+def _dist_two_ranks(device, card: str, alone):
+    """23b: two ranks that share the card over gloo, each a ``python3
+    chip_smoke.py --dist-rank`` subprocess, against one process (``alone``
+    is 23a's bf16 run without a group).  Returns rank 0's launches and
+    the shapes at which rows 1-5 were held against their plain versions."""
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    addr = f"localhost:{_free_port()}"
+    root = Path(__file__).resolve().parent
+    procs, logs = [], []
+    t = time.perf_counter()
+    for rank in range(2):
+        logs.append(open(DIST_DIR / f"rank{rank}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(root / "chip_smoke.py"), "--dist-rank",
+             str(rank), "--dist-addr", addr, "--dist-out", str(DIST_DIR)],
+            cwd=root, stdout=logs[-1], stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONUNBUFFERED": "1"}))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            with _torch_set(False, False, torch.get_num_threads()):
+                one = {tag: _dist_cli(f"world1_{tag}", DIST_DIR, device,
+                                      augment=augment)
+                       for tag, _, augment in DIST_CLI_RUNS
+                       if tag != "fsdp"}
+                one["fixture"] = _dist_fixture(device, fp32=True)
+            # the bf16 witness: one process, the rows in another order
+            perm = torch.randperm(BATCH,
+                                  generator=torch.Generator().manual_seed(0))
+            one["witness"] = _dist_fixture(device, permute=perm)
+        for proc in procs:
+            proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - t)))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t
+    tails = [(DIST_DIR / f"rank{r}.log").read_text()[-3000:]
+             for r in range(2)]
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"23b a rank failed: exits "
+                             f"{[p.returncode for p in procs]}\n"
+                             + "\n".join(tails))
+    ranks = [torch.load(DIST_DIR / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    r0, r1 = ranks
+    if r0["backend"] != "gloo":
+        raise AssertionError(f"23b backend {r0['backend']}")
+    # the CLI: rank 0 alone wrote; the ranks agree; FSDP equals DP; every
+    # step's rows on the two ranks are one process's; DP against one
+    rows = [json.loads(line) for line in (
+        DIST_DIR / "dp" / RUN_NAME / "metrics.jsonl").read_text().splitlines()]
+    epochs = [r for r in rows if "epoch" in r]
+    if ([r["epoch"] for r in epochs] != [0, -1] or r0["dp"]["writes"]
+            != (True, True) or r1["dp"]["writes"] != (False, False)):
+        raise AssertionError(f"23b writers: epoch rows "
+                             f"{[r['epoch'] for r in epochs]}, rank 0 "
+                             f"{r0['dp']['writes']}, rank 1 "
+                             f"{r1['dp']['writes']}")
+    for tag, _, _ in DIST_CLI_RUNS:
+        if r0[tag]["summary"] != r1[tag]["summary"]:
+            raise AssertionError(f"23b {tag}: the ranks' summaries differ")
+    if (r0["fsdp"]["summary"] != r0["dp"]["summary"] or any(
+            not torch.equal(r0["fsdp"]["params"][k], v)
+            for k, v in r0["dp"]["params"].items()) or not r0["fsdp"]["fsdp"]):
+        raise AssertionError("23b fsdp: the summary or the checkpoint's "
+                             "parameters differ from data parallelism's")
+    for tag in ("dp", "dp_noaug"):
+        steps = list(zip(r0[tag]["ids"], r1[tag]["ids"], one[tag]["ids"]))
+        if len(steps) != DIST_TRAIN_ROWS // BATCH or any(
+                len(a) != BATCH // 2 or sorted(a + b) != sorted(w)
+                for a, b, w in steps):
+            raise AssertionError(f"23b {tag}: the ranks' rows of a step are "
+                                 f"not one process's")
+
+    def cli_gaps(tag):
+        w1, w2 = one[tag]["history"][0], r0[tag]["history"][0]
+        epoch = max(abs(w2[k] - w1[k]) / abs(w1[k]) for k in w1
+                    if k.endswith("loss"))
+        test = max(abs(r0[tag]["summary"][k] - one[tag]["summary"][k])
+                   / abs(one[tag]["summary"][k])
+                   for k in one[tag]["summary"] if k.endswith("loss"))
+        return epoch, test, _update_gap(r0[tag]["params"], one[tag]["params"],
+                                        one[tag]["init"])
+
+    cli, noaug = cli_gaps("dp"), cli_gaps("dp_noaug")
+    fix = one["fixture"]
+    fix_gap = _update_gap(r0["fixture"]["params"], fix["params"],
+                          fix["init"])
+    fix_loss = max(abs(a - b) / abs(b) for a, b in zip(
+        r0["fixture"]["losses"], fix["losses"]))
+    bf16 = _fixture_gaps(r0["fixture_bf16"], alone)
+    witness = _fixture_gaps(one["witness"], alone)
+    log(f"[dist] 23b {card}: two ranks sharing the card over gloo, "
+        f"{BATCH // 2} rows a rank of a global {BATCH}; wall {wall:.1f} s "
+        f"for both ranks' runs with the one-process runs beside them")
+    for tag, _, _ in DIST_CLI_RUNS:
+        log(f"[dist] 23b CLI {tag} (fp32, TF32 off), rank 0: one epoch in "
+            f"{r0[tag]['seconds']:.1f} s, peak {r0[tag]['peak']:.2f} GiB a "
+            f"rank, summary {r0[tag]['summary']}, launches "
+            f"{r0[tag]['launches']}")
+    for tag, gaps, what in (
+            ("dp", cli, "other SpecAugment bands a sample: parameters not "
+             "held"),
+            ("dp_noaug", noaug, "held")):
+        log(f"[dist] 23b CLI {tag}, one process: one epoch in "
+            f"{one[tag]['seconds']:.1f} s, peak {one[tag]['peak']:.2f} GiB, "
+            f"summary {one[tag]['summary']}; two ranks against it: every "
+            f"step's rows the same, epoch losses within {gaps[0]:.3e} "
+            f"relative (test {gaps[1]:.3e}); parameter changes "
+            f"{gaps[2][0]:.3e} apart over the model (the farthest tensor "
+            f"{gaps[2][1]:.3e}, {gaps[2][2]}), {what}")
+    log(f"[dist] 23b fixture one process (fp32, TF32 off): step median "
+        f"{fix['ms']:.2f} ms over {DIST_STEPS - 1}, peak "
+        f"{fix['peak']:.2f} GiB, losses {fix['losses']}")
+    for tag in ("fixture", "fixture_fsdp", "fixture_bf16"):
+        log(f"[dist] 23b {tag} (bn_fused, the stored-index pool), rank 0: "
+            f"step median {r0[tag]['ms']:.2f} ms over {DIST_STEPS - 1}, "
+            f"peak {r0[tag]['peak']:.2f} GiB, {r0[tag]['sharded']} leaves "
+            f"sharded, losses {r0[tag]['losses']}, launches "
+            f"{r0[tag]['launches']}")
+    log(f"[dist] 23b fixture in fp32, two ranks against one process: losses "
+        f"within {fix_loss:.3e} relative, parameter changes "
+        f"{fix_gap[0]:.3e} apart over the model (the farthest tensor "
+        f"{fix_gap[1]:.3e}, {fix_gap[2]})")
+    log(f"[dist] 23b fixture in bf16 against 23a's one process: two ranks "
+        f"losses within {bf16[0]:.3e} relative, parameter changes "
+        f"{bf16[1]:.3e} apart after the first step and {bf16[2]:.3e} after "
+        f"the last; the witness (one process, the rows permuted; step "
+        f"median {one['witness']['ms']:.2f} ms) {witness[0]:.3e}, "
+        f"{witness[1]:.3e}, {witness[2]:.3e}")
+    if (r0["fixture"]["losses"] != r1["fixture"]["losses"]
+            or r0["fixture_fsdp"]["losses"] != r0["fixture"]["losses"]
+            or not r0["fixture_fsdp"]["sharded"]):
+        raise AssertionError("23b fixture: the ranks, or fsdp and data "
+                             "parallelism, part")
+    if (r0["fixture_bf16"]["losses"] != r1["fixture_bf16"]["losses"]
+            or not all(math.isfinite(v) for v in r0["fixture_bf16"]["losses"])
+            or not all(r0["fixture_bf16"]["launches"].values())):
+        raise AssertionError(f"23b fixture bf16: the ranks part, a loss is "
+                             f"not finite or a kernel did not launch: "
+                             f"{r0['fixture_bf16']['losses']}, "
+                             f"{r1['fixture_bf16']['losses']}, "
+                             f"{r0['fixture_bf16']['launches']}")
+    if (max(cli[:2]) > DIST_CLI_RTOL
+            or max(*noaug[:2], fix_loss) > DIST_LOSS_RTOL
+            or max(noaug[2][0], fix_gap[0]) > DIST_UPDATE_TOL):
+        raise AssertionError(f"23b two ranks against one process: losses "
+                             f"{cli[:2]}, {noaug[:2]}, {fix_loss}; updates "
+                             f"{noaug[2]}, {fix_gap}")
+    limits = [max(DIST_BF16_WITNESS * w, DIST_BF16_FLOOR) for w in witness]
+    if not all(g <= lim for g, lim in zip(bf16, limits)):
+        raise AssertionError(f"23b bf16 two ranks against one process: "
+                             f"{bf16}, past {limits} (witness {witness})")
+    launches = collections.Counter()
+    for tag in (*(t for t, _, _ in DIST_CLI_RUNS), "fixture",
+                "fixture_fsdp", "fixture_bf16"):
+        launches.update(r0[tag]["launches"])
+    shapes = _check_dist_shapes(r0["calls"])
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return dict(launches), shapes
+
+
+def phase_dist(device, card: str, kernels):
+    """Phase 23: the data axis of ``parallel/``.  (a) world size 1 over
+    NCCL in process; (b) two ranks sharing the card over gloo.  The
+    ``dist`` path's launches are rank 0's in (b), where rows 1-5 are then
+    held against their plain versions at every shape they were given;
+    ``dist_world1`` (a)'s data-parallel run's."""
+    t0 = time.perf_counter()
+    with _torch_set(*TORCH_DEFAULTS):
+        world1, alone = _dist_world1(device, card)
+        two, shapes = _dist_two_ranks(device, card, alone)
+    for entry in kernels:
+        paths = entry.setdefault("launches_by_path", {})
+        paths["dist"] = two.get(entry["name"], 0)
+        paths["dist_world1"] = world1.get(entry["name"], 0)
+        if entry["name"] in shapes:
+            entry.setdefault("checked_shapes_by_path", {})[
+                "dist"] = shapes[entry["name"]]
+    log(f"[dist] launches of every TPU kernel: dist {two}; dist_world1 "
+        f"{world1}; phase 23 took {time.perf_counter() - t0:.1f} s")
 
 
 @contextlib.contextmanager
@@ -5366,6 +6005,8 @@ def main() -> int:
         phase_multiseed(device, card, kernels)
     with _phase_time("22", seconds):
         phase_switches(device, card, kernels)
+    with _phase_time("23", seconds):
+        phase_dist(device, card, kernels)
     log(f"[time] every phase, wall s: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
         f"the script so far {time.perf_counter() - t0:.1f} s")
     missing = [e["name"] for e in kernels if not e["launches"]]
@@ -5389,6 +6030,14 @@ def main() -> int:
             for n in ("bn_sums", "bn_bwd_sums")) or not sweep[
                 "log_spectrogram"]["serve"]:
         raise AssertionError("a kernel of phase 22 did not launch there")
+    # rows 1-5 on phase 23's paths, and held at the dist path's shapes
+    checked = {e["name"]: e.get("checked_shapes_by_path", {}).get("dist")
+               for e in kernels}
+    if not all(sweep[n]["dist"] and sweep[n]["dist_world1"] and checked[n]
+               for n in ("log_spectrogram", "bn_sums", "bn_bwd_sums",
+                         "maxpool_fwd", "maxpool_bwd")):
+        raise AssertionError("a kernel of phase 23 did not launch there or "
+                             "was not checked at its shapes")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5398,4 +6047,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_rank_main(sys.argv[1:]))
     sys.exit(main())

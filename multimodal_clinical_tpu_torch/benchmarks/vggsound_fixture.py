@@ -19,13 +19,14 @@ import torch
 from ..engine.spec import ModelSpec
 from ..engine.state import create_train_state
 from ..engine.steps import make_train_step
+from ..models.resnet import ResNetEncoder
 from ..models.zoo import CremadFusionNet
 from ..utils.device import resolve_device
 from .vggsound import device_preprocess
 
 
 def build_vggsound_bench(batch: int = 224, num_classes: int = 309, *,
-                         pool_kernel: str = "xla",
+                         pool_kernel: str = "xla", bn_fused: bool = False,
                          stem_space_to_depth: bool = False,
                          remat: Optional[str] = None, device="cuda",
                          frames_bf16: bool = True,
@@ -37,7 +38,8 @@ def build_vggsound_bench(batch: int = 224, num_classes: int = 309, *,
     sizes default to the reference geometry; the tests and the card-against-
     CPU check shrink them and compute in fp32.  ``frames_bf16`` mirrors the
     production loader's transfer cast; ``pool_kernel="pallas"`` is the
-    towers' stored-index max-pool, ``stem_space_to_depth`` their
+    towers' stored-index max-pool, ``bn_fused`` their BN-sums BatchNorm,
+    ``stem_space_to_depth`` their
     space-to-depth stem and ``remat`` their block recompute (see
     ``models/resnet.py``)."""
     device = resolve_device(device)
@@ -49,10 +51,16 @@ def build_vggsound_bench(batch: int = 224, num_classes: int = 309, *,
     args = SimpleNamespace(num_classes=num_classes, batch_size=batch,
                            learning_rate=1e-2, num_epochs=60,
                            use_scheduler=False, seed=0)
+    switches = dict(dtype=dtype, width=width, pool_kernel=pool_kernel,
+                    remat=remat, stem_space_to_depth=stem_space_to_depth)
+    module = CremadFusionNet(num_classes, **switches)
+    if bn_fused:
+        # the fusion net, as the JAX one, sets no bn_fused: its towers
+        # are swapped for switched ones of the same geometry
+        module.x1_model = ResNetEncoder(1, bn_fused=True, **switches)
+        module.x2_model = ResNetEncoder(3, bn_fused=True, **switches)
     spec = ModelSpec(
-        module=CremadFusionNet(num_classes, dtype=dtype, width=width,
-                               pool_kernel=pool_kernel, remat=remat,
-                               stem_space_to_depth=stem_space_to_depth),
+        module=module,
         contract="jprobas",
         device_preprocess=device_preprocess,
     )

@@ -16,6 +16,10 @@ Layout, as the JAX package writes it:
                                ``keep_last``
     <ckpt_dir>/meta.json       best metric and resume bookkeeping
 
+Under data parallelism every rank computes the tree (FSDP gathers its
+slices for it), rank 0 alone writes, and every rank reads a checkpoint
+after a barrier (the JAX package's primary-process writes).
+
 Each checkpoint is a directory holding ``state.pt``.  A save writes
 ``<name>.pending/state.pt`` (through a temporary file and a rename, so the
 file exists only once complete), then swaps the pending directory over
@@ -35,6 +39,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel.distributed import barrier, is_primary
 from .state import TrainState
 
 STATE_FILE = "state.pt"
@@ -42,10 +47,16 @@ PENDING = ".pending"
 
 
 def state_to_tree(state: TrainState) -> Dict[str, Any]:
+    """The full train state; under FSDP its slices gathered whole (a
+    collective: every rank calls it)."""
+    fsdp = getattr(state, "fsdp", None)
+    if fsdp is not None:
+        fsdp.gather()
     return {
         "step": int(state.step),
         "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": (state.optimizer.state_dict() if fsdp is None else
+                      fsdp.full_optimizer_state(state.optimizer)),
         "ema": state.ema,
         "seed": int(state.seed),
         "qmf_correctness": state.qmf_correctness,
@@ -57,10 +68,18 @@ def tree_into_state(state: TrainState, tree: Dict[str, Any],
                     weights_only: bool = False) -> TrainState:
     """Load ``tree`` into ``state`` in place; ``weights_only`` takes the
     model's parameters and BN buffers only (a warm start)."""
+    fsdp = getattr(state, "fsdp", None)
+    if fsdp is not None:
+        fsdp.gather()  # the whole leaves to load into
     state.model.load_state_dict(tree["model"])
+    if fsdp is not None:
+        fsdp.reshard()
     if weights_only:
         return state
-    state.optimizer.load_state_dict(tree["optimizer"])
+    if fsdp is None:
+        state.optimizer.load_state_dict(tree["optimizer"])
+    else:
+        fsdp.load_full_optimizer_state(state.optimizer, tree["optimizer"])
     device = state.ema.device
     state.ema = tree["ema"].to(device)
     for key in ("qmf_correctness", "qmf_confidence"):
@@ -90,8 +109,10 @@ class BestCheckpointer:
         # (0 for epoch-boundary saves): mid-epoch exact resume
         self.steps_into_epoch: int = 0
         self.keep_last = max(1, int(keep_last))
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-        self._recover_pending()
+        self._primary = is_primary()
+        if self._primary:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+            self._recover_pending()
 
     # -- commit plumbing -------------------------------------------------
     @staticmethod
@@ -114,6 +135,11 @@ class BestCheckpointer:
                 shutil.rmtree(tmp, ignore_errors=True)
 
     def _save(self, path: str, tree: Dict[str, Any]) -> None:
+        if self._primary:
+            self._write(path, tree)
+        barrier()
+
+    def _write(self, path: str, tree: Dict[str, Any]) -> None:
         tmp = path + PENDING
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -131,6 +157,8 @@ class BestCheckpointer:
 
     # -- metadata ---------------------------------------------------------
     def _write_meta(self) -> None:
+        if not self._primary:
+            return
         with open(os.path.join(self.ckpt_dir, "meta.json"), "w") as f:
             json.dump({"best_metric": self.best_metric,
                        "epochs_done": self.epochs_done,
@@ -169,6 +197,8 @@ class BestCheckpointer:
     def _last_candidates(self):
         """[(step, path)] of rolling checkpoints, oldest first."""
         out = []
+        if not os.path.isdir(self.ckpt_dir):
+            return out
         for name in os.listdir(self.ckpt_dir):
             m = re.fullmatch(r"last-(\d+)", name)
             if m:
@@ -196,8 +226,10 @@ class BestCheckpointer:
             self._write_meta()
         candidates = [p for _, p in self._last_candidates() if p != path]
         keep_prior = self.keep_last - 1
-        for stale in candidates[:-keep_prior] if keep_prior else candidates:
-            shutil.rmtree(stale)
+        if self._primary:
+            for stale in (candidates[:-keep_prior] if keep_prior
+                          else candidates):
+                shutil.rmtree(stale)
         self._save(path, state_to_tree(state))
         return path
 
@@ -206,6 +238,7 @@ class BestCheckpointer:
         """Restore the state from the newest rolling checkpoint for exact
         resume (model, optimizer, EMA, QMF tables, step, seed).  None if there is no
         checkpoint.  A torn newest checkpoint falls back to an older one."""
+        barrier()  # every rank lists what rank 0 has written
         candidates = self._last_candidates()
         if not candidates:
             return None
@@ -229,6 +262,7 @@ class BestCheckpointer:
                      ) -> TrainState:
         """Load the best checkpoint into ``state``; ``state`` unchanged
         when there is none."""
+        barrier()
         if self.best_path is None:
             candidate = os.path.join(self.ckpt_dir, "best")
             if not self._committed(candidate):
@@ -238,5 +272,6 @@ class BestCheckpointer:
         return tree_into_state(state, tree, weights_only)
 
     def has_checkpoint(self) -> bool:
+        barrier()
         return bool(self._last_candidates()) or self._committed(
             os.path.join(self.ckpt_dir, "best"))

@@ -46,6 +46,7 @@ from ..algos.ogm_ge import (
 from ..algos.qmf import init_history
 from ..data.loader import DeviceCopy, Loader, prefetched_iter
 from ..models.common import MaskSource, dropout_source, init_weights
+from ..parallel.distributed import world_size
 from ..utils.device import resolve_device
 from .metrics import (
     EpochAccumulator, eval_epoch_summary, to_host, train_epoch_summary,
@@ -381,13 +382,13 @@ class BestValTracker:
 def _refuse(args) -> None:
     """What the JAX sweep refuses, in its words, and the port's process
     settings that it cannot honour."""
-    if any(getattr(args, key, None) not in (None, False, 0, "")
-           for key in ("dist_init", "dist_coordinator")):
-        # the JAX sweep refuses a multi-process run; the port has no
-        # multi-process run before its parallel/ package
+    if world_size() > 1:
+        # the vmapped sweep replicates each seed's full batch in the one
+        # process; a rank's strided shard of the stream would feed each
+        # process's copy of a seed other rows (JAX engine/multiseed.py:185)
         raise NotImplementedError(
             "num_seeds>1 is a single-process sweep (vmap over seeds); "
-            "run one seed per process (dist_init / dist_coordinator set)")
+            "run one seed per process under torch.distributed")
     if getattr(args, "overfit_batches", 0):
         # the sweep trains per-seed data orders in one program; pinning
         # "the first k batches" is seed-ambiguous here

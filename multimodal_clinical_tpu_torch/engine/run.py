@@ -1,12 +1,15 @@
 """End-to-end run wiring: data -> state -> Trainer -> fit -> test (port of
 ``multimodal_clinical_tpu/engine/run.py``).
 
-Resolve the device, construct loaders with the dataset's sampler policy,
-initialise the TrainState on the device, fit with best-checkpointing, and
-test (utils/run_trainer.py:6-70).  One seed on one device; S seeds train
-together in one process through ``engine/multiseed.py``.  The JAX
-package's mesh, FSDP, pipeline and multi-host settings come with the
-port's ``parallel/`` (ROADMAP.md queue A, item 18) and raise until then.
+Resolve the device and the mesh over the ranks, construct loaders with
+the dataset's sampler policy (each rank its shard of the global stream),
+initialise the TrainState on the device (FSDP with ``fsdp: true``), fit
+with best-checkpointing, and test (utils/run_trainer.py:6-70).  S seeds
+train together in one process through ``engine/multiseed.py``.  Of the
+JAX package's parallel settings the data axis runs here
+(``dist_*``, ``mesh_shape: {data: D}``, ``fsdp``); the model and stage
+axes, ``pipeline_stages`` and ``sequence_sharding`` raise until ROADMAP.md
+item 18b.
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ import torch
 
 from ..data.loader import Loader
 from ..data.sampler import RandomSampler, SequentialSampler, WeightedSampler
+from ..parallel.distributed import rank, world_size
+from ..parallel.mesh import DATA_AXIS, Mesh, make_mesh, refuse_item_18b
+from ..parallel.sharding import place_state
 from ..utils.device import resolve_device
 from .checkpoint import BestCheckpointer
 from .state import create_train_state
@@ -37,12 +43,14 @@ class DataBundle:
     synthetic: bool = False
 
 
-def _make_sampler(kind: str, dataset, seed: int):
+def _make_sampler(kind: str, dataset, seed: int, process_index: int = 0,
+                  process_count: int = 1):
+    proc = dict(process_index=process_index, process_count=process_count)
     if kind == "weighted":
-        return WeightedSampler(dataset.labels, seed=seed)
+        return WeightedSampler(dataset.labels, seed=seed, **proc)
     if kind == "random":
-        return RandomSampler(len(dataset), seed=seed)
-    return SequentialSampler(len(dataset))
+        return RandomSampler(len(dataset), seed=seed, **proc)
+    return SequentialSampler(len(dataset), **proc)
 
 
 def resolve_loader_workers(args) -> int:
@@ -65,15 +73,28 @@ def transfer_dtype(args) -> Optional[torch.dtype]:
     return None
 
 
-def build_loaders(args, data: DataBundle, device="cuda"
+def build_loaders(args, data: DataBundle, device="cuda",
+                  mesh: Optional[Mesh] = None
                   ) -> Tuple[Loader, Loader, Loader]:
-    """Per-split loaders; the splits' sampler seeds are offset 0/1/2."""
+    """Per-split loaders; the splits' sampler seeds are offset 0/1/2.
+    Under data parallelism every rank derives the same global per-epoch
+    index stream and loads its strided shard of it
+    (``stream[rank::world]``, ``data/sampler.py``), ``batch_size / world``
+    rows a step, onto its own device."""
+    bs = int(args.batch_size)
+    dp = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    if bs % dp != 0:
+        raise ValueError(
+            f"batch_size {bs} not divisible by data-axis size {dp}")
+    pi, pc = rank(), world_size()
+    if bs % pc != 0:
+        raise ValueError(f"batch_size {bs} not divisible by process count {pc}")
     seed = int(getattr(args, "seed", 0))
     workers = resolve_loader_workers(args)
 
     def loader(split, kind, seed_offset):
-        return Loader(split, int(args.batch_size),
-                      _make_sampler(kind, split, seed + seed_offset),
+        return Loader(split, bs // pc,
+                      _make_sampler(kind, split, seed + seed_offset, pi, pc),
                       workers=workers, transfer_dtype=transfer_dtype(args),
                       device=device)
 
@@ -85,26 +106,26 @@ def build_loaders(args, data: DataBundle, device="cuda"
 
 
 def _refuse_parallel_settings(args) -> None:
-    """The settings the JAX package spreads over a mesh or hosts."""
-    set_ = [key for key in ("mesh_shape", "fsdp", "pipeline_stages",
-                            "sequence_sharding", "dist_init",
-                            "dist_coordinator")
-            if getattr(args, key, None) not in (None, False, 0)]
-    if set_:
-        raise NotImplementedError(
-            f"{set_} set: the port runs on one device until its parallel/ "
-            "package lands (ROADMAP.md queue A, item 18)")
+    """The settings of the JAX package's model and stage axes: ROADMAP.md
+    item 18b."""
+    refuse_item_18b(
+        pipeline_stages=int(getattr(args, "pipeline_stages", 0) or 0),
+        sequence_sharding=bool(getattr(args, "sequence_sharding", False)))
 
 
 def run_benchmark(args, benchmark_module, profile_dir: Optional[str] = None,
                   device="cuda") -> Dict[str, float]:
-    """Full fit+test for one benchmark; returns the test-epoch summary."""
+    """Full fit+test for one benchmark; returns the test-epoch summary.
+    ``device`` is this rank's (``parallel/distributed.py``)."""
     device = resolve_device(device)
     _refuse_parallel_settings(args)
+    mesh = make_mesh(getattr(args, "mesh_shape", None) or None,
+                     device.type)
     data: DataBundle = benchmark_module.get_data(args)
     spec, opt_kwargs = benchmark_module.get_model_spec(
         args, n_train=len(data.train))
-    train_loader, val_loader, test_loader = build_loaders(args, data, device)
+    train_loader, val_loader, test_loader = build_loaders(args, data, device,
+                                                          mesh)
     steps_per_epoch = max(1, -(-len(data.train) // int(args.batch_size)))
     state = create_train_state(spec, args, int(getattr(args, "seed", 0)),
                                steps_per_epoch, device=device,
@@ -126,6 +147,9 @@ def run_benchmark(args, benchmark_module, profile_dir: Optional[str] = None,
         if loader_ckpt.restore_last(state, weights_only=True) is None:
             loader_ckpt.restore_best(state, weights_only=True)
         print(f"[run] warm-started weights from {init_ckpt}")
+    # FSDP over the data axis with ``fsdp: true``; else every leaf
+    # replicated (every rank draws and loads the same weights)
+    state = place_state(state, mesh, fsdp=bool(getattr(args, "fsdp", False)))
     trainer = Trainer(args, spec, state, train_loader, val_loader, test_loader,
                       profile_dir=profile_dir)
     if getattr(args, "resume", False):

@@ -9,6 +9,21 @@ calibration, the metrics and the QMF History scatter.
 ``{"x1"|"x1_waveform", "x2", "label", "idx", "valid"}``; ``valid`` masks
 the padding rows of fixed-size batches.  Metrics stay on the device:
 reading them is the caller's synchronisation.
+
+Under data parallelism (``parallel/``) each rank's batch is its rows of
+the global batch.  After the forward every rank gathers the global
+batch's model outputs, labels, masks and ids, its own rows kept live
+(``global_rows``), and computes the contract's loss, the metrics, the EMA
+and the QMF History on the global batch, as the JAX step does over its
+data mesh; every rank's backward reaches only its own rows, so the sum of
+the ranks' gradients (``sum_gradients``) is the global batch's gradient.
+The OGM-GE modulation follows that sum, and FSDP (``state.fsdp``) gathers
+its sharded leaves before the forward and keeps its slices after.  The
+collectives run over the state's data axis (``state.data_axis``), which
+the train step also hands to the ops that see the global batch (global
+BatchNorm, the dropout and SpecAugment draws) for its extent
+(``parallel/distributed.py::data_axis``).  For one rank (None) none of
+this issues a collective.
 """
 
 from __future__ import annotations
@@ -22,6 +37,10 @@ from ..algos import qmf as qmf_lib
 from ..algos.ogm_ge import NoiseSource, device_noise, modulate_gradients
 from ..algos.vicreg import vicreg_loss
 from ..models.common import MaskSource, dropout_source
+from ..parallel.distributed import (
+    all_reduce_sum_, axis_group, data_axis, global_rows, group_size,
+    rank_rows,
+)
 from . import contracts as C
 from .spec import ModelSpec
 from .state import TrainState, mixed_seed
@@ -175,7 +194,10 @@ def _train_metrics(spec: ModelSpec, ema: torch.Tensor, aux, loss, label,
 def device_dropout(seed: int, step: int) -> MaskSource:
     """Dropout keep masks drawn on each activation's device, one generator
     per device seeded from (seed, step) on its own stream, in the order
-    the forward asks: a resumed run draws what the uninterrupted one did."""
+    the forward asks: a resumed run draws what the uninterrupted one did.
+    Under data parallelism each mask is drawn at the global batch's shape
+    and the rank keeps its rows, so any number of ranks draws the masks
+    of one."""
     generators = {}
 
     def source(shape, keep_prob, device):
@@ -184,9 +206,45 @@ def device_dropout(seed: int, step: int) -> MaskSource:
             gen = torch.Generator(device=device)
             gen.manual_seed(mixed_seed(seed, step, stream=2))
             generators[device] = gen
-        return torch.rand(shape, generator=gen, device=device) < keep_prob
+        group = axis_group()
+        drawn = (shape[0] * group_size(group),) + tuple(shape[1:])
+        return rank_rows(torch.rand(drawn, generator=gen, device=device)
+                         < keep_prob, group)
 
     return source
+
+
+def global_batch(batch: Batch, out: Dict, group) -> Tuple[Batch, Dict]:
+    """The global batch's labels, masks, ids and model outputs from this
+    rank's (``batch``, ``out``) over the data axis's ``group``, this
+    rank's rows live; the inputs as they are.  The identity for one
+    rank."""
+    if group_size(group) == 1:
+        return batch, out
+    batch = dict(batch)
+    for key in ("label", "valid", "idx"):
+        if key in batch:
+            batch[key] = global_rows(batch[key], group)
+    out = {k: ([global_rows(t, group) for t in v]
+               if isinstance(v, (list, tuple)) else global_rows(v, group))
+           for k, v in out.items()}
+    return batch, out
+
+
+def sum_gradients(model: torch.nn.Module, group) -> None:
+    """Sum every gradient over the data axis's ``group``, one collective
+    per dtype over the flattened gradients; a no-op for one rank."""
+    if group_size(group) == 1:
+        return
+    by_dtype: Dict[torch.dtype, list] = {}
+    for param in model.parameters():
+        if param.grad is not None:
+            by_dtype.setdefault(param.grad.dtype, []).append(param.grad)
+    for grads in by_dtype.values():
+        flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in grads]),
+                               group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view(g.shape))
 
 
 def make_train_step(
@@ -204,24 +262,37 @@ def make_train_step(
     modulate = bool(spec.apply_grad_mod and spec.grad_mod_type)
 
     def train_step(state: TrainState, batch: Batch):
+        # the ops that see the global batch read the data axis from here
+        with data_axis(state.data_axis):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: Batch):
+        if state.fsdp is not None:
+            state.fsdp.gather()
         if spec.device_preprocess is not None:
             batch = spec.device_preprocess(batch, state.step_generator(), True)
-        label, valid = batch["label"], batch["valid"]
         state.model.train()
         with dropout_source(dropout(state)):
             out = state.model(*_model_inputs(batch, spec))
+        batch, out = global_batch(batch, out, state.data_axis)
+        label, valid = batch["label"], batch["valid"]
         aux: Dict[str, Any] = {}
         loss = _train_loss(spec, history_of(state), batch, out, aux)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        sum_gradients(state.model, state.data_axis)
         if modulate:
             raw = out["logits"]
             modulate_gradients(state.model, raw[0], raw[1], label,
                                ogm_noise(state), alpha=spec.ogm_alpha,
                                modulation=spec.grad_mod_type, valid=valid)
+        if state.fsdp is not None:
+            state.fsdp.keep_grad_slices()
         for group in state.optimizer.param_groups:
             group["lr"] = state.lr_schedule(state.step)
         state.optimizer.step()
+        if state.fsdp is not None:
+            state.fsdp.release()
         with torch.no_grad():
             state.ema, metrics = _train_metrics(spec, state.ema, aux,
                                                 loss.detach(), label, valid)
@@ -325,10 +396,13 @@ def eval_outputs(spec: ModelSpec, batch: Batch, out, history) -> Dict:
 def make_eval_step(spec: ModelSpec) -> Callable[[TrainState, Batch], Dict]:
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
+        if state.fsdp is not None:
+            state.fsdp.gather()
         if spec.device_preprocess is not None:
             batch = spec.device_preprocess(batch, None, False)
         state.model.eval()
         out = state.model(*_model_inputs(batch, spec))
+        batch, out = global_batch(batch, out, state.data_axis)
         return eval_outputs(spec, batch, out, history_of(state))
 
     return eval_step

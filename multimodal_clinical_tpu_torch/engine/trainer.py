@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..parallel.distributed import is_primary, world_size
 from ..utils.logging import RunLogger
 from .checkpoint import BestCheckpointer
 from .metrics import (
@@ -95,9 +96,14 @@ class Trainer:
         self.run_dir = run_dir or os.path.join(
             getattr(args, "ckpt_dir", None) or f"{data_path}_ckpts", str(group)
         )
-        os.makedirs(self.run_dir, exist_ok=True)
+        # under data parallelism rank 0 alone writes the run's files
+        primary = is_primary()
+        if primary:
+            os.makedirs(self.run_dir, exist_ok=True)
         self.logger = logger or RunLogger(
-            self.run_dir, use_wandb=bool(getattr(args, "use_wandb", False)))
+            self.run_dir, use_wandb=bool(getattr(args, "use_wandb", False)),
+            wandb_config=vars(args) if hasattr(args, "__dict__") else None,
+            group_name=str(group), write=primary)
         self.ckpt = BestCheckpointer(os.path.join(self.run_dir, "ckpt"))
         self.train_step = make_train_step(spec)
         self.eval_step = make_eval_step(spec)
@@ -256,6 +262,7 @@ class Trainer:
         profile_epoch = (start_epoch + 1
                          if num_epochs - start_epoch > 1 else start_epoch)
         last_val: Dict[str, float] = {}
+        world = world_size()  # samples count the global batch's rows
         for epoch in range(start_epoch, num_epochs):
             self.train_loader.set_epoch(epoch)
             acc = EpochAccumulator()
@@ -292,13 +299,14 @@ class Trainer:
                         continue
                     self.state, metrics = self.scan_train_step(
                         self.state, *pending)
-                    samples += sum(b["label"].shape[0] for b in pending)
+                    samples += sum(b["label"].shape[0]
+                                   for b in pending) * world
                     advanced = len(pending)
                     global_step += advanced
                     pending = []
                 else:
                     self.state, metrics = self.train_step(self.state, batch)
-                    samples += batch["label"].shape[0]
+                    samples += batch["label"].shape[0] * world
                     advanced = 1
                     global_step += 1
                 acc.append(metrics)
@@ -320,7 +328,7 @@ class Trainer:
             for batch in pending:  # tail shorter than K: single steps
                 self.state, metrics = self.train_step(self.state, batch)
                 acc.append(metrics)
-                samples += batch["label"].shape[0]
+                samples += batch["label"].shape[0] * world
                 global_step += 1
                 into_epoch += 1
                 if self._preempt_requested:
@@ -328,9 +336,10 @@ class Trainer:
             if profiler is not None:
                 _sync(self.state)
                 profiler.stop()
-                os.makedirs(self.profile_dir, exist_ok=True)
-                profiler.export_chrome_trace(os.path.join(
-                    self.profile_dir, f"trace_epoch{epoch}.json"))
+                if is_primary():
+                    os.makedirs(self.profile_dir, exist_ok=True)
+                    profiler.export_chrome_trace(os.path.join(
+                        self.profile_dir, f"trace_epoch{epoch}.json"))
             # the epoch's one wait for the card: the metric streams' fetch
             epoch_summary = train_epoch_summary(acc)
             wall = time.perf_counter() - tic

@@ -21,6 +21,7 @@ from torch import nn
 
 from ..ops.fused_bn import batch_norm_inference, batch_norm_train_stats
 from ..ops.seed_fold import batch_norm
+from ..parallel.distributed import axis_group, group_size
 
 
 def kaiming_normal_fan_out_(w: torch.Tensor, generator=None) -> torch.Tensor:
@@ -120,9 +121,11 @@ class TorchBatchNorm(BatchNormBase):
     ``F.batch_norm`` (``ops/seed_fold.batch_norm`` under the multi-seed
     sweep's vmap) computes the batch statistics into scratch buffers
     (momentum 1 leaves the batch mean and the unbiased variance there) and
-    the running buffers are updated here by hand.  The output is in
-    ``dtype`` or, when None, in the promotion of the input with fp32, as
-    flax's is.  Takes (N, C, ...)."""
+    the running buffers are updated here by hand.  Under data parallelism
+    (the step's data axis) the statistics are the global batch's, through
+    ``ops/fused_bn.py`` with its plain sums summed over the ranks.  The
+    output is in ``dtype`` or, when None, in the promotion of the input
+    with fp32, as flax's is.  Takes (N, C, ...)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = self.dtype or torch.promote_types(x.dtype,
@@ -132,20 +135,31 @@ class TorchBatchNorm(BatchNormBase):
                            self.weight, self.bias, False, 0.0, self.eps)
             return y.to(out_dtype)
         c = x.shape[1]
+        if group_size(axis_group()) > 1:
+            # data parallelism: the statistics of the global batch, through
+            # ops/fused_bn.py with its plain sums summed over the ranks
+            y, mean, biased = batch_norm_train_stats(
+                x.movedim(1, -1), self.weight, self.bias, self.eps,
+                kernels=False)
+            if self.update_running:
+                self._move_running(mean, biased)
+            return y.movedim(-1, 1).to(out_dtype)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         y = batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
                        self.eps)
         if not self.update_running:
             return y.to(out_dtype)
-        with torch.no_grad():
-            m = x.numel() // c
-            biased = var * ((m - 1) / m)
-            self.running_mean.mul_(1.0 - self.momentum).add_(
-                mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(
-                biased, alpha=self.momentum)
+        m = x.numel() // c
+        self._move_running(mean, var * ((m - 1) / m))
         return y.to(out_dtype)
+
+    @torch.no_grad()
+    def _move_running(self, mean: torch.Tensor, biased: torch.Tensor):
+        self.running_mean.mul_(1.0 - self.momentum).add_(
+            mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(
+            biased, alpha=self.momentum)
 
 
 class FusedBatchNorm(BatchNormBase):
@@ -172,7 +186,7 @@ class FusedBatchNorm(BatchNormBase):
         if not self.update_running:
             return y.movedim(-1, 1)
         with torch.no_grad():
-            m = x.numel() // x.shape[-1]
+            m = x.numel() // x.shape[-1] * group_size(axis_group())
             self.running_mean.mul_(1.0 - self.momentum).add_(
                 mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(

@@ -31,6 +31,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._functorch.pyfunctorch import temporarily_pop_interpreter_stack
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
@@ -161,15 +162,15 @@ class _ForwardThenRecompute:
     backward its recompute.  The BatchNorms move their running statistics
     in the forward only, as flax's functional ``nn.remat`` does."""
 
-    def __init__(self, block: nn.Module):
-        self.block, self.ran = block, False
+    def __init__(self, block: nn.Module, run=None):
+        self.block, self.run, self.ran = block, run or block, False
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, *args: torch.Tensor) -> torch.Tensor:
         if not self.ran:
             self.ran = True
-            return self.block(x)
+            return self.run(*args)
         with frozen_running_stats(self.block):
-            return self.block(x)
+            return self.run(*args)
 
 
 class ResNetEncoder(nn.Module):
@@ -228,16 +229,59 @@ class ResNetEncoder(nn.Module):
         if self.remat is None or not torch.is_grad_enabled():
             return block(x)
         if torch._C._functorch.is_batchedtensor(x):
-            # the recompute runs in the backward, outside the vmap whose
-            # batched tensors it would need (ROADMAP.md section C, C2)
-            raise NotImplementedError(
-                f"remat={self.remat!r} under torch.func.vmap (the multi-seed "
-                "sweep): a checkpoint's recompute runs outside the vmap; "
-                "sweep with remat=None")
+            return _checkpoint_vmapped_block(block, x, self.remat)
         return checkpoint(_ForwardThenRecompute(block), x,
                           use_reentrant=False, preserve_rng_state=False,
                           context_fn=functools.partial(_remat_contexts,
                                                        self.remat))
+
+
+def _checkpoint_vmapped_block(block: nn.Module, x: torch.Tensor,
+                              remat: str) -> torch.Tensor:
+    """A block under ``remat`` inside the multi-seed sweep's ``vmap``.  The
+    checkpoint's recompute runs in the backward, outside that vmap, so the
+    checkpoint is put outside it: the block's input, parameters and
+    buffers are unwrapped to their stacked (S, ...) tensors, the
+    checkpoint runs a vmap of the block over them (the recompute re-runs
+    that vmap), and the output is wrapped back at the sweep's level."""
+    level = torch._C._functorch.maybe_get_level(x)
+    params = dict(block.named_parameters())
+    buffers = dict(block.named_buffers())
+    names = list(params) + list(buffers)
+    stacked, dims = [], []
+    for t in [x, *params.values(), *buffers.values()]:
+        if (torch._C._functorch.is_batchedtensor(t)
+                and torch._C._functorch.maybe_get_level(t) == level):
+            t, bdim = torch._C._functorch._unwrap_batched(t, level)
+        else:
+            bdim = None
+        stacked.append(t)
+        dims.append(bdim)
+    n_inputs = 1 + len(params)
+
+    def one(x, *leaves):
+        return torch.func.functional_call(
+            block, (dict(zip(names[:len(params)], leaves[:len(params)])),
+                    dict(zip(names[len(params):], leaves[len(params):]))),
+            (x,))
+
+    vmapped = torch.func.vmap(one, in_dims=tuple(dims))
+    # the buffers reach the vmap from here, not as the checkpoint's
+    # inputs: the forward moves the running statistics in place, which a
+    # saved input may not see
+    run = functools.partial(_with_buffers, vmapped, stacked[n_inputs:])
+    # the checkpoint itself runs with the sweep's vmap level popped, as it
+    # would outside the sweep: its tensors are the unwrapped ones
+    with temporarily_pop_interpreter_stack():
+        out = checkpoint(_ForwardThenRecompute(block, run),
+                         *stacked[:n_inputs], use_reentrant=False,
+                         preserve_rng_state=False,
+                         context_fn=functools.partial(_remat_contexts, remat))
+    return torch._C._functorch._add_batch_dim(out, 0, level)
+
+
+def _with_buffers(vmapped, buffers, *inputs):
+    return vmapped(*inputs, *buffers)
 
 
 class BottleneckBlock(nn.Module):

@@ -29,8 +29,7 @@ Numerics follow the flax modules: the compute ``dtype`` (bf16 in the
 config) for the projections, the patch conv, attention and the MLPs,
 fp32 parameters, LayerNorms that give fp32, the softmax in the compute
 dtype (``zoo.dot_product_attention``).  The JAX package's pipelined
-stacks and sequence sharding come with the port's ``parallel/``
-(ROADMAP.md queue A, item 18).
+stacks and sequence sharding are ROADMAP.md item 18b.
 """
 
 from __future__ import annotations

@@ -11,7 +11,13 @@ NHWC view of a ``channels_last`` feature map, so (M, C) is a view.
     dbeta = sum(dy),  dgamma = sum(dy * xhat)
     dx   = g * dy - (g / M) * dbeta - (g / M) * dgamma * rstd * (x - mean)
 
-with rstd = rsqrt(var + eps) and g = scale * rstd.  The two sums are
+with rstd = rsqrt(var + eps) and g = scale * rstd.  Under data
+parallelism (the step's data axis, ``parallel/distributed.py::
+axis_group``) M and the sums are those of the global batch: each rank's
+sums are summed over the ranks between the kernel and the apply, and
+between the backward's kernel and dx; the default BatchNorm of the towers
+(``models/common.py::TorchBatchNorm``) takes this path there, with the
+plain sums (``kernels=False``).  The two sums are
 the kernels (``ops/cuda_fused_bn.py``) for a CUDA tensor, the plain
 versions here (``channel_sums``, ``bwd_sums``) for a CPU tensor.  The
 normalise, apply and dx stay elementwise PyTorch, as the JAX package
@@ -26,6 +32,7 @@ from typing import Tuple
 
 import torch
 
+from ..parallel.distributed import all_reduce_sum_, axis_group, group_size
 from . import cuda_fused_bn as cuda
 from .seed_fold import fold_seeds_into_channels, unfold_channels
 
@@ -68,12 +75,19 @@ class _BatchNormTrain(torch.autograd.Function):
     seeds.  On the card that needs S * C within the kernels' ``MAX_C``;
     past it the rule raises.  The fold is a view where the seed axis lies
     next to the channels in memory, as the seed-grouped convolutions leave
-    it, and a copy elsewhere."""
+    it, and a copy elsewhere.  ``kernels=False`` takes the plain sums on
+    the card too."""
 
     @staticmethod
-    def forward(x, scale, bias, eps):
-        m = x.numel() // x.shape[-1]
-        s, s2 = _sums(x)
+    def forward(x, scale, bias, eps, kernels):
+        c = x.shape[-1]
+        m = x.numel() // c
+        s, s2 = _sums(x) if kernels else channel_sums(x.reshape(-1, c))
+        group = axis_group()
+        if group_size(group) > 1:
+            # data parallelism: the sums over the global batch
+            sums = all_reduce_sum_(torch.cat([s, s2]), group)
+            s, s2, m = sums[:c], sums[c:], m * group_size(group)
         mean = s / m
         var = torch.clamp_min(s2 / m - mean * mean, 0.0)
         rstd = torch.rsqrt(var + eps)
@@ -84,10 +98,12 @@ class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, scale, _, _ = inputs
+        x, scale, _, _, kernels = inputs
         _, mean, var, rstd = output
         ctx.save_for_backward(x, scale, mean, rstd)
         ctx.mark_non_differentiable(mean, var, rstd)
+        # the backward sums over the forward's data axis
+        ctx.kernels, ctx.group = kernels, axis_group()
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar, _drstd):
@@ -96,21 +112,31 @@ class _BatchNormTrain(torch.autograd.Function):
         # back another layout (the expanded gradient of a ``.sum()``), so
         # it is copied to that one here, a no-op on the towers' path
         dy = dy.contiguous()
-        m = x.numel() // x.shape[-1]
-        sum_dy, sum_dy_xhat = _grad_sums(dy, x, mean, rstd)
+        c = x.shape[-1]
+        m = x.numel() // c
+        sum_dy, sum_dy_xhat = (
+            _grad_sums(dy, x, mean, rstd) if ctx.kernels
+            else bwd_sums(dy.reshape(-1, c), x.reshape(-1, c), mean, rstd))
+        # the scale's and bias's gradients are this rank's sums (the step
+        # sums every gradient over the ranks); dx takes the global ones
+        dscale, dbias = sum_dy_xhat, sum_dy
+        world = group_size(ctx.group)
+        if world > 1:
+            sums = all_reduce_sum_(torch.cat([sum_dy, sum_dy_xhat]),
+                                   ctx.group)
+            sum_dy, sum_dy_xhat, m = sums[:c], sums[c:], m * world
         g = scale.float() * rstd
         k1 = g / m
         # dx = g * dy - k1 * sum_dy - (k1 * sum_dy_xhat * rstd) * (x - mean)
         xc = torch.sub(x, mean)
         torch.addcmul(-(k1 * sum_dy), xc, -(k1 * sum_dy_xhat * rstd), out=xc)
         dx = torch.addcmul(xc, dy, g, out=torch.empty_like(x))
-        return (dx, sum_dy_xhat.to(scale.dtype), sum_dy.to(scale.dtype),
-                None)
+        return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None, None
 
     @staticmethod
-    def vmap(info, in_dims, x, scale, bias, eps):
+    def vmap(info, in_dims, x, scale, bias, eps, kernels):
         seeds = info.batch_size
-        x_dim, scale_dim, bias_dim, _ = in_dims
+        x_dim, scale_dim, bias_dim, _, _ = in_dims
         scale = _per_seed(scale, scale_dim, seeds)
         bias = _per_seed(bias, bias_dim, seeds)
         c = scale.shape[-1]
@@ -121,7 +147,7 @@ class _BatchNormTrain(torch.autograd.Function):
                 f"{cuda.MAX_C}: sweep fewer seeds")
         xf, _ = fold_seeds_into_channels(x, x_dim, seeds)
         y, mean, var, rstd = _BatchNormTrain.apply(
-            xf, scale.reshape(-1), bias.reshape(-1), eps)
+            xf, scale.reshape(-1), bias.reshape(-1), eps, kernels)
         stats = [t.view(seeds, c) for t in (mean, var, rstd)]
         return ((unfold_channels(y, seeds, c), *stats),
                 (y.dim() - 1, 0, 0, 0))
@@ -133,11 +159,13 @@ def _per_seed(t: torch.Tensor, bdim, seeds: int) -> torch.Tensor:
 
 
 def batch_norm_train_stats(x: torch.Tensor, scale: torch.Tensor,
-                           bias: torch.Tensor, eps: float = 1e-5):
+                           bias: torch.Tensor, eps: float = 1e-5,
+                           kernels: bool = True):
     """Training-mode BN over a channels-last (..., C) ``x``: returns
     (y in x's dtype, mean, biased var), the last two fp32 and without
-    gradient.  ``y`` is differentiable in (x, scale, bias)."""
-    return _BatchNormTrain.apply(x, scale, bias, float(eps))[:3]
+    gradient.  ``y`` is differentiable in (x, scale, bias).  The sums are
+    the kernels on the card unless ``kernels`` is False."""
+    return _BatchNormTrain.apply(x, scale, bias, float(eps), kernels)[:3]
 
 
 def batch_norm_inference(x: torch.Tensor, scale: torch.Tensor,

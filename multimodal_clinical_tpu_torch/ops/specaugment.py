@@ -16,6 +16,8 @@ from typing import Tuple
 
 import torch
 
+from ..parallel.distributed import axis_group, group_size, rank_rows
+
 
 def draw_bands(generator: torch.Generator, batch: int, dim: int,
                mask_param: int, num_masks: int
@@ -57,9 +59,14 @@ def spec_augment_masks(generator, batch: int, f: int, t: int,
     B / S rows."""
     gens = (list(generator) if isinstance(generator, (list, tuple))
             else [generator])
-    per = batch // len(gens)
+    # data parallelism (the step's data axis): one generator draws the
+    # global batch's bands and the rank keeps its rows, so any number of
+    # ranks draws the masks of one
+    group = axis_group() if len(gens) == 1 else None
+    per = batch * group_size(group) // len(gens)
     draws = [draw_bands(g, per, f, freq_mask_param, num_freq_masks)
              + draw_bands(g, per, t, time_mask_param, num_time_masks)
              for g in gens]
-    fw, fs, tw, ts = (torch.cat(parts) for parts in zip(*draws))
+    fw, fs, tw, ts = (rank_rows(torch.cat(parts), group)
+                      for parts in zip(*draws))
     return band_mask(fw, fs, f, device), band_mask(tw, ts, t, device)

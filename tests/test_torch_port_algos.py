@@ -8,8 +8,11 @@ near zero.  The OGM coefficient ``1 - tanh(.)`` is the exception: tanh
 near 1 rounds to ulps of 1.0, so the coefficient is held to two of them
 (2.4e-7) absolute, and a modulated gradient is held to 1e-6 relative
 given each side's own coefficient (two ulps of 1.0 are 8.9e-7 of a
-coefficient of 0.27).  The History tables are written, not summed: they must be
-equal bit for bit.
+coefficient of 0.27).  The noise term's scale, each leaf's fp32 std, is
+held the same way: each side's std to the float64 one within a bound of
+the reduction's length (``_std_rtol``), and the modulated gradient given
+each side's own std.  The History tables are written, not summed: they
+must be equal bit for bit.
 
 The JAX ``_modulate_leaf`` draws its noise with ``jax.random.normal``;
 the tests replace that draw in the JAX module's namespace (as
@@ -48,6 +51,14 @@ RTOL = 1e-6
 FLOOR = 1e-6  # of the tensor's largest entry
 COEFF_ATOL = 2 * 2.0 ** -23
 WIDTH, CLASSES = 4, 5
+
+
+def _std_rtol(n: int) -> float:
+    """Relative bound on an fp32 std of ``n`` entries against float64: the
+    rounding of a length-n reduction grows as sqrt(n) ulps for random-sign
+    errors, taken four times over.  For the largest leaf (9216 entries) it
+    is 2.3e-5, under the 5.4e-5 by which ddof 0 would part from ddof 1."""
+    return 4.0 * np.sqrt(n) * 2.0 ** -24
 
 
 def _close(got, want, name=""):
@@ -186,6 +197,22 @@ def test_modulate_gradients_matches_jax(nets, monkeypatch, modulation, bias):
                                  jnp.asarray(valid)))]
     for c, jc in coeffs:
         assert abs(c - jc) <= COEFF_ATOL, coeffs
+    # likewise each side's noise scale, the leaf's fp32 std (ddof 1): each
+    # held to the float64 std within _std_rtol of its length, then JAX's
+    # noise term moved onto the port's std in float64, so a last-bit
+    # difference in the two reductions is not amplified by a noise draw
+    # into the gradient's relative bound
+    stds = {}
+    if modulation != "OGM":
+        for path in order:
+            leaf = get_leaf(grads, path)
+            std64 = np.std(leaf.astype(np.float64), ddof=1)
+            port = float(_t(to_torch_layout("conv", leaf)).flatten().std())
+            jstd = float(jnp.std(jnp.asarray(leaf), ddof=1))
+            for side, s in (("port", port), ("jax", jstd)):
+                assert abs(s - std64) <= _std_rtol(leaf.size) * std64, (
+                    path, side, s, std64)
+            stds[path] = (port, jstd)
     for name, (_, path, kind) in keys.items():
         got = named[name].grad
         ref = to_torch_layout(kind, get_leaf(want, path))
@@ -194,6 +221,10 @@ def test_modulate_gradients_matches_jax(nets, monkeypatch, modulation, bias):
             given = to_torch_layout(kind, get_leaf(grads, path))
             ref = ref.astype(np.float64) + given.astype(np.float64) * (
                 c - jc)
+        if path in stds:
+            port, jstd = stds[path]
+            ref = ref.astype(np.float64) + to_torch_layout(
+                "conv", noise[path]).astype(np.float64) * (port - jstd)
         _close(got, ref, name)
         if len(path) and path[-1] != "kernel" or got.ndim != 4:
             # not modulated: bit-equal to the gradient given

@@ -168,8 +168,23 @@ def test_multiseed_cli_writes_seeds_csv(tmp_path):
                                        ("pipeline_stages", 2),
                                        ("mesh_shape", {"data": 8})])
 def test_parallel_settings_raise(key, value):
+    """In one process: ``pipeline_stages`` raises naming ROADMAP.md item
+    18b, a data axis of 8 over one device raises the JAX ``make_mesh``
+    error, and ``fsdp`` raises nothing: at world size 1 the JAX rule
+    shards no leaf, so the state stays whole."""
     args = SimpleNamespace(**{key: value})
-    with pytest.raises(NotImplementedError, match="item 18"):
+    if key == "fsdp":
+        run._refuse_parallel_settings(args)
+        mesh = run.make_mesh(getattr(args, "mesh_shape", None))
+        state = SimpleNamespace(model=torch.nn.Linear(512, 512),
+                                optimizer=None)
+        assert run.place_state(state, mesh, fsdp=value).fsdp is None
+        return
+    if key == "mesh_shape":
+        with pytest.raises(ValueError, match="mesh 8x1x1 != 1 devices"):
+            run.run_benchmark(args, vggsound, device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="item 18b"):
         run.run_benchmark(args, vggsound, device="cpu")
 
 
@@ -232,3 +247,23 @@ def test_build_loaders_seed_offsets_and_transfer_dtype(tmp_path):
     assert train.transfer_dtype is torch.bfloat16 and train.workers == 2
     args.transfer_dtype = "float32"
     assert run.build_loaders(args, data, "cpu")[0].transfer_dtype is None
+
+
+def test_use_wandb_warns_and_trains(tmp_path, monkeypatch, capsys):
+    """``use_wandb`` set and wandb not importable: the run says so on
+    stderr, as the JAX logger does (``utils/logging.py:28-38``), and
+    trains, logging every row to ``metrics.jsonl``."""
+    import json
+    import sys
+
+    monkeypatch.setitem(sys.modules, "wandb", None)  # import wandb fails
+    summary = port_main.run_training(
+        ["--dir", "mimic", "--set", "num_epochs=1", "--set", "use_wandb=True",
+         "--set", f"data_path={tmp_path}/none", "--set",
+         f"ckpt_dir={tmp_path}/runs"], device="cpu")
+    assert "[logger] wandb disabled (" in capsys.readouterr().err
+    (path,) = Path(f"{tmp_path}/runs").glob("*/metrics.jsonl")
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    assert [r["epoch"] for r in rows if "epoch" in r] == [0, -1]
+    assert rows[-1]["test_epoch/test_avg_loss"] == pytest.approx(
+        summary["test_epoch/test_avg_loss"])

@@ -321,12 +321,15 @@ def test_refusals_use_jax_words(tmp_path, overrides, uneven, match):
 
 
 @pytest.mark.parametrize("key", ["dist_init", "dist_coordinator"])
-def test_multi_process_settings_refused(tmp_path, key):
-    """The JAX sweep refuses a multi-process run; the port refuses the
-    settings that would ask it for one."""
+def test_multi_process_settings_refused(tmp_path, monkeypatch, key):
+    """The JAX sweep refuses a multi-process run; so does the port's, in
+    a process group of more than one rank (here the group's size as the
+    sweep reads it; ``test_torch_port_parallel.py`` runs the refusal in a
+    real group of two)."""
     args = make_args(tmp_path, "port", **{key: "tcp://localhost:1234"})
+    monkeypatch.setattr(multiseed, "world_size", lambda: 2)
     with pytest.raises(NotImplementedError,
-                       match="single-process sweep"):
+                       match="run one seed per process"):
         multiseed.run_multiseed(args, avmnist, [0, 1], device="cpu")
 
 

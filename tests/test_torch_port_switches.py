@@ -39,7 +39,7 @@ from multimodal_clinical_tpu_torch.models.common import (
     FusedBatchNorm, init_weights,
 )
 from multimodal_clinical_tpu_torch.models.jax_weights import (
-    get_leaf, jax_key_map, load_jax_variables,
+    get_leaf, jax_key_map, load_jax_variables, to_torch_layout,
 )
 from multimodal_clinical_tpu_torch.models.resnet import (
     BottleneckResNetEncoder, ResNetEncoder, StemConv,
@@ -348,20 +348,120 @@ def test_fixture_knobs_at_narrow_size():
             assert _scaled_err(state[key].numpy(), value.numpy()) <= 1e-4
 
 
-def test_remat_under_the_sweep_raises_naming_the_switch():
-    """A checkpoint's recompute runs in the backward, outside the sweep's
-    vmap, so the port refuses ``remat`` there (ROADMAP.md section C)."""
+def _sweep_steps(remat, steps=2, **switches):
+    """Two steps of the multi-seed sweep (seeds 0 and 1) on the narrow
+    VGGSound fixture: the losses, and the stacked parameters and
+    buffers."""
     _, _, batch, spec = build_vggsound_bench(
         batch=2, num_classes=CLASSES, device="cpu", frames_bf16=False,
         num_frames=1, image_size=32, samples=4000, width=8, dtype=None,
-        remat="convs")
+        remat=remat, **switches)
     args = SimpleNamespace(num_classes=CLASSES, batch_size=2,
                            learning_rate=1e-2, use_scheduler=False, seed=0)
     state = create_multiseed_state(spec, args, [0, 1], steps_per_epoch=10,
                                    device="cpu")
     train, _ = make_multiseed_steps(spec)
     stacked = {k: torch.stack([v, v]) for k, v in batch.items()}
+    losses = []
     with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        with pytest.raises(NotImplementedError, match="remat='convs'"):
-            train(state, stacked)
+        warnings.simplefilter("error", UserWarning)  # no per-seed fallback
+        torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+        try:
+            for _ in range(steps):
+                state, metrics = train(state, stacked)
+                losses.append(metrics["train_loss"].clone())
+        finally:
+            torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    leaves = {**state.params, **state.buffers}
+    return torch.stack(losses), {k: v.detach().clone()
+                                 for k, v in leaves.items()}
+
+
+@pytest.mark.parametrize("switches", [{}, SWITCHED],
+                         ids=["default", "switched"])
+@pytest.mark.parametrize("remat", ["convs", "none"])
+def test_remat_under_the_sweep_equals_the_sweep_without_it(remat, switches):
+    """Under the sweep's vmap each block's checkpoint sits outside the
+    vmap (``models/resnet.py::_checkpoint_vmapped_block``), and the
+    recompute re-runs the vmapped block: two steps give the losses,
+    parameters and running buffers of the sweep without ``remat`` bit for
+    bit, on the default and the switched towers."""
+    base_losses, base = _sweep_steps(None, **switches)
+    losses, leaves = _sweep_steps(remat, **switches)
+    assert torch.equal(losses, base_losses)
+    for key, value in base.items():
+        assert torch.equal(leaves[key], value), key
+
+
+@pytest.mark.parametrize("remat", ["convs", "none"])
+def test_remat_under_vmap_matches_jax_vmapped_remat(remat):
+    """The encoder under ``remat`` in a vmap over two seeds' stacked
+    weights and inputs (the sweep's layout), against ``jax.vmap`` of the
+    JAX ``nn.remat`` encoder's train pass: outputs, parameter gradients
+    and running buffers of each seed, to the tolerances of
+    ``test_remat_encoder_matches_jax``."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 2, 33, 37, 1)).astype(np.float32)
+    w = rng.normal(size=(2, 2, 5, 5, 2 * WIDTH)).astype(np.float32)
+    jmod = jax_resnet.ResNetEncoder(stage_sizes=(1, 1), width=WIDTH,
+                                    remat=remat)
+    init = jax.jit(lambda key: jmod.init(key, jnp.asarray(x[0]),
+                                         train=False))
+    variables = [init(jax.random.PRNGKey(s)) for s in range(2)]
+    params = jax.tree_util.tree_map(lambda *a: jnp.stack(a),
+                                    *[v["params"] for v in variables])
+    stats = jax.tree_util.tree_map(lambda *a: jnp.stack(a),
+                                   *[v["batch_stats"] for v in variables])
+
+    def loss(p, st, xs, ws):
+        out, mutated = jmod.apply({"params": p, "batch_stats": st}, xs,
+                                  train=True, mutable=["batch_stats"])
+        return jnp.sum(out * ws), (out, mutated["batch_stats"])
+
+    (_, (jout, jstats)), jgrads = jax.jit(jax.vmap(jax.value_and_grad(
+        loss, has_aux=True)))(params, stats, jnp.asarray(x), jnp.asarray(w))
+
+    models = []
+    for s in range(2):
+        model = ResNetEncoder(1, stage_sizes=(1, 1), width=WIDTH,
+                              remat=remat)
+        load_jax_variables(
+            model, jax.tree_util.tree_map(lambda a: np.asarray(a[s]),
+                                          params),
+            jax.tree_util.tree_map(lambda a: np.asarray(a[s]), stats))
+        models.append(model.to(memory_format=torch.channels_last))
+    names = dict(models[0].named_parameters())
+    sweep_params = {k: torch.stack([dict(m.named_parameters())[k].detach()
+                                    for m in models]).requires_grad_(True)
+                    for k in names}
+    sweep_buffers = {k: torch.stack([dict(m.named_buffers())[k]
+                                     for m in models])
+                     for k, _ in models[0].named_buffers()}
+    template = models[0].train()
+
+    def one(p, b, xs):
+        return torch.func.functional_call(template, (p, b), (xs,))
+
+    out = torch.func.vmap(one)(sweep_params, sweep_buffers,
+                               torch.from_numpy(x))
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=RTOL, atol=ATOL)
+    from test_torch_port_models import GRAD_SCALED_TOL
+
+    checked = 0
+    for key, (coll, path, kind) in jax_key_map(template).items():
+        for s in range(2):
+            if coll == "params":
+                _assert_scaled_close(
+                    sweep_params[key].grad[s].numpy(),
+                    to_torch_layout(kind, np.asarray(get_leaf(jgrads,
+                                                              path))[s]),
+                    GRAD_SCALED_TOL, key)
+            else:
+                np.testing.assert_allclose(
+                    sweep_buffers[key][s].numpy(),
+                    np.asarray(get_leaf(jstats, path))[s], rtol=RTOL,
+                    atol=ATOL, err_msg=key)
+            checked += 1
+    assert checked == 2 * len(jax_key_map(template))
