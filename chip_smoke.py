@@ -121,8 +121,8 @@ Phases, each of which raises on failure:
    files of
    ``benchmarks/array_fixture.py`` (AV-MNIST's six ``.npy`` at 55 320 + 320
    rows, MIMIC's ``im.pk``, MUsTARD's ``sarcasm.pkl``) through ``get_data``
-   for one CLI epoch.  No TPU kernel lies on these paths: each must record 0
-   launches;
+   for one CLI epoch (AV-MNIST's at batch 512).  No TPU kernel lies on
+   these paths: each must record 0 launches;
 18. Enrico and FakeNews: (a) narrow nets on the card against the CPU, two
    train steps from the same weights, the second batch with a padded tail:
    Enrico jlogits (frozen ResNet18Slim features at width 16) and
@@ -258,7 +258,23 @@ Phases, each of which raises on failure:
    ranks must be one process's, two ranks must agree with one within
    DIST_LOSS_RTOL and DIST_UPDATE_TOL (fp32) and within DIST_BF16_WITNESS
    times the witness's gap (bf16); then rows 1-5 are held against their
-   plain versions at every (shape, dtype) that rank 0's runs gave them.
+   plain versions at every (shape, dtype) that rank 0's runs gave them;
+24. the model and stage axes of ``parallel/``: (a) Food101 jlogits at
+   siglip-base width in bf16 with ``pipeline_stages: 2`` and no mesh (the
+   stacked one-device layout): its initial weights, unstacked, and its
+   losses over a warm-up and 4 steps at batch 128 equal the plain
+   towers', with each one's step ms and peak GiB; then the CLI for one
+   epoch of the twin in that layout, its checkpoint stacked; (b) two
+   ranks sharing the card over gloo (``python3 chip_smoke.py --maxis-rank
+   R --maxis-world 2``), 8 rows, TP ``{model: 2}``, TP x SP and GPipe
+   ``{stage: 2}`` with 4 microbatches, each in fp32 (TF32 off) and bf16,
+   held against one process (DIST_LOSS_RTOL and DIST_UPDATE_TOL in fp32;
+   DIST_BF16_WITNESS times the larger of a rows-permuted witness's gap
+   and bf16's own distance from fp32); (c) four ranks of Crema-D ogm_ge
+   at full width on ``{data: 2, model: 2}``, fp32, ``bn_fused`` and the
+   stored-index pool, against one process, rank 0 recording rows 2-5,
+   which are then held against their plain versions at those shapes; (b)
+   and (c) run together beside (a)'s CLI and the one-process runs.
 
 The CLI runs as a ``python3 -m`` subprocess once per family (phase 11 for
 VGGSound, Crema-D and AVE, 17c for the small nets, 20d for Food101), and
@@ -274,11 +290,12 @@ Food101 legacy pair's; ``multiseed`` for phase 21b's sweeps and
 ``multiseed_narrow`` for 21a's card sweeps; ``remat``,
 ``bottleneck_bn_fused``, ``serve`` and ``remat_sweep`` for phase 22a-c
 and e; ``dist`` for rank 0's runs in phase 23b, ``dist_world1`` for 23a's
-data-parallel run); the
+data-parallel run; ``model_axis`` for 24c's rank 0, ``model_axis_siglip``
+for 24a); the
 max-pool's entries list the shapes checked on the phase 14 path and on
 phase 21b's Crema-D sweep (``multiseed``) and on phase 22a's fixture
 (``remat``) under ``checked_shapes_by_path``, and rows 1-5 the (shape,
-dtype) pairs checked on the ``dist`` path.
+dtype) pairs checked on the ``dist`` path, rows 2-5 on ``model_axis``.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints no
@@ -2749,9 +2766,13 @@ MIMIC_TRAIN = 28970
 SMALL_CLI = {"avmnist": "jlogits", "mimic": "qmf", "mustard": "jlogits"}
 SMALL_CLI_PROCESS = "mustard"
 # 17d: the files' row counts, cut from the real ones (AV-MNIST 60 000 +
-# 10 000 of which 55 000 train, MIMIC 36 212, MUsTARD 690)
+# 10 000 of which 55 000 train, MIMIC 36 212, MUsTARD 690), and the batch
+# of each CLI epoch through them: AV-MNIST's 55 000 rows at the config's 32
+# are 1719 host-bound steps (47 s measured on one H100), at 512 they are
+# 108 (the files' path is the same; the script's time limit is not)
 SMALL_FILES = {"avmnist": (55000 + 320, 320), "mimic": 4096,
                "mustard": (256, 64, 64)}
+SMALL_FILES_BATCH = {"avmnist": 512}
 
 
 def _small_batches(bench: str, dev, rows: int, valid, table: int,
@@ -3191,16 +3212,20 @@ def _small_files_run(device, bench: str, work: Path):
         made = fx.build_mustard_pickle(str(path), *SMALL_FILES[bench])
     written = time.perf_counter() - t
     t = time.perf_counter()
+    batch = SMALL_FILES_BATCH.get(bench)
     summary = cli.run_training(
         ["--dir", bench, "--set", f"ckpt_dir={root}/runs", "--set",
-         f"data_path={path}", "--set", "num_epochs=1"], device=device)
+         f"data_path={path}", "--set", "num_epochs=1",
+         *(("--set", f"batch_size={batch}") if batch else ())],
+        device=device)
     if not math.isfinite(summary.get("test_epoch/test_avg_acc", math.nan)):
         raise AssertionError(f"{bench} files: summary {summary}")
     rows = [json.loads(line) for p in root.glob("runs/*/metrics.jsonl")
             for line in p.read_text().splitlines()]
     epoch = next(r for r in rows if r.get("epoch") == 0)
     log(f"[files] {bench}: {made['rows']} rows, {made['bytes'] / 1e6:.1f} "
-        f"MB written in {written:.1f} s; one CLI epoch through get_data in "
+        f"MB written in {written:.1f} s; one CLI epoch through get_data"
+        + (f" at batch {batch}" if batch else "") + " in "
         f"{time.perf_counter() - t:.1f} s "
         f"({epoch['train_epoch/samples_per_sec']:.1f} train samples/s over "
         f"the epoch), test_avg_acc "
@@ -5482,7 +5507,7 @@ def _dist_fixture(device, rows=None, fsdp: bool = False,
         batch = {k: v[rows].contiguous() for k, v in batch.items()}
     init = {k: v.float().cpu() for k, v in state.model.state_dict().items()}
     state = place_state(state, make_mesh(None, device.type), fsdp=fsdp)
-    sharded = 0 if state.fsdp is None else len(state.fsdp.leaves)
+    sharded = 0 if state.sharded is None else len(state.sharded.leaves)
     launchers = _all_launchers()
     for fn in launchers.values():
         fn.launches = 0
@@ -5578,7 +5603,7 @@ def _dist_cli(tag: str, out: Path, device, extra=(), rank=None, addr=None,
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             seen["trainer"] = self
-            if self.state.fsdp is None:
+            if self.state.sharded is None:
                 seen["init"] = {k: v.float().cpu() for k, v in
                                 self.state.model.state_dict().items()}
             step = self.train_step
@@ -5609,7 +5634,7 @@ def _dist_cli(tag: str, out: Path, device, extra=(), rank=None, addr=None,
                 peak=torch.cuda.max_memory_allocated(device) / 2**30,
                 writes=(trainer.logger.write, trainer.ckpt._primary),
                 history=trainer.history, params=params, ids=seen["ids"],
-                init=seen.get("init"), fsdp=trainer.state.fsdp is not None)
+                init=seen.get("init"), fsdp=trainer.state.sharded is not None)
 
 
 # 23b's CLI runs on each rank: (tag, --set arguments, SpecAugment on)
@@ -5940,6 +5965,659 @@ def phase_dist(device, card: str, kernels):
         f"{world1}; phase 23 took {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 24: the model and stage axes ------------------------------------
+
+MAXIS_DIR = WORK_DIR / "model_axis"
+# 24a: the CLI's batch (four train steps of the 128-row twin), and the
+# train steps after a warm-up of each layout in process at FOOD_BATCH
+MAXIS_CLI_BATCH, MAXIS_STEPS = 32, 4
+# 24a: the pipelined net draws the plain one's weights (the same draws in
+# the same order) and runs the same ops on views of its stacked leaves, so
+# its losses are the plain net's; held to this relative gap
+MAXIS_PP_RTOL = 1e-6
+# 24b: the global batch of the two-rank runs at siglip-base width (the
+# second with MAXIS_PAD padded rows) and their train steps.  In bf16 the
+# rows-permuted witness moves nothing here (SigLIP's ops act on each row
+# alone, so every GEMM keeps its shape and its sums their order), while a
+# column block, a microbatch or a sum over the model group rounds bf16
+# otherwise: the bf16 runs are held to DIST_BF16_WITNESS times the larger
+# of the witness's gap and the one-process bf16 run's own distance from
+# the fp32 one (bf16's rounding of this computation)
+MAXIS_ROWS, MAXIS_PAD, MAXIS_RANK_STEPS = 8, 2, 2
+MAXIS_LAYOUTS = (
+    ("tp", {"model": 2}, {}),
+    ("tp_sp", {"model": 2}, {"sequence_sharding": True}),
+    ("pp", {"stage": 2}, {"pipeline_stages": 2, "pipeline_microbatches": 4}))
+# 24c: Crema-D ogm_ge at full width on {data: 2, model: 2}, the global
+# batch (8 rows a data coordinate) and its train steps
+MAXIS_CREMAD_ROWS, MAXIS_CREMAD_STEPS = 16, 2
+
+
+def _unstacked(tree):
+    """A full model tree with each pipelined tower's stacked blocks under
+    the plain tower's names (stage s, block j -> layer s * per + j)."""
+    out, stacked = {}, {}
+    for key, value in tree.items():
+        if ".pipeline.stages.layers." in key:
+            head, rest = key.split(".pipeline.stages.layers.")
+            j, tail = rest.split(".", 1)
+            stacked.setdefault(head, []).append((int(j), tail, value))
+        else:
+            out[key] = value
+    for head, entries in stacked.items():
+        per = 1 + max(j for j, _, _ in entries)
+        for j, tail, value in entries:
+            for s in range(value.shape[0]):
+                out[f"{head}.encoder.layers.{s * per + j}.{tail}"] = value[s]
+    return out
+
+
+def _model_tree(state, device=None):
+    """The full model tree in fp32 (a copy, on ``device`` or where it
+    lies), a pipelined tower's blocks under the plain net's names."""
+    from multimodal_clinical_tpu_torch.engine.checkpoint import state_to_tree
+
+    return _unstacked({k: v.to(device, torch.float32, copy=True) for k, v in
+                       state_to_tree(state)["model"].items()})
+
+
+def _pp_cli(device, card: str):
+    """24a: the Food101 CLI in process with ``pipeline_stages: 2`` (no
+    mesh: the stacked one-device layout) for one epoch of the twin at
+    MAXIS_CLI_BATCH, beside 24b's and 24c's ranks; the summary finite,
+    the checkpoint in the stacked layout."""
+    import multimodal_clinical_tpu_torch.__main__ as cli
+
+    out = MAXIS_DIR / "cli"
+    shutil.rmtree(out, ignore_errors=True)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = cli.run_training(
+            ["--dir", "food101", "--set", "model_type=jlogits",
+             "--set", "pipeline_stages=2", "--set", "num_epochs=1",
+             "--set", f"batch_size={MAXIS_CLI_BATCH}",
+             "--set", f"ckpt_dir={out}",
+             "--set", f"data_path={MAXIS_DIR / 'none'}"], device=device)
+    seconds = time.perf_counter() - t
+    (ckpt,) = sorted(out.glob("*/ckpt/last-*"))[-1:]
+    tree = torch.load(ckpt / "state.pt", map_location="cpu",
+                      weights_only=True)["model"]
+    stacked = [k for k, v in tree.items()
+               if ".pipeline.stages." in k and v.shape[0] == 2]
+    if (not all(math.isfinite(v) for v in summary.values())
+            or not stacked or any(".encoder." in k for k in tree)):
+        raise AssertionError(f"24a CLI: summary {summary}, "
+                             f"{len(stacked)} stacked leaves")
+    log(f"[model_axis] 24a {card}: the Food101 CLI (jlogits, bf16, "
+        f"siglip-base, pipeline_stages=2 without a mesh: the stacked "
+        f"one-device layout) for one epoch of the 128-row twin at batch "
+        f"{MAXIS_CLI_BATCH} in {seconds:.1f} s (24b's and 24c's ranks "
+        f"sharing the card); the checkpoint holds "
+        f"{len(stacked)} stacked leaves (2, ...); summary {summary}")
+
+
+def _food_layout_steps(device, pipeline_stages: int, data):
+    """24a: a warm-up and MAXIS_STEPS train steps of Food101 jlogits at
+    the published geometry in bf16 from seed 0, pipelined (one device) or
+    not: the losses, the step median, the peak and the initial weights."""
+    from multimodal_clinical_tpu_torch.engine import steps
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+
+    spec, opt, args = _food_spec("jlogits", len(data.train),
+                                 pipeline_stages=pipeline_stages)
+    state = create_train_state(spec, args, 0, steps_per_epoch=100,
+                               device=device, **opt)
+    init = _model_tree(state, "cpu")  # off the card: the peak is the step's
+    batches = _food_full_batches(data.train, device)
+    train_step = steps.make_train_step(spec)
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms = [], []
+    for i in range(1 + MAXIS_STEPS):
+        t = time.perf_counter()
+        state, metrics = train_step(state, batches[min(i, 1)])
+        torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["train_loss"]))
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    del state, train_step, batches
+    torch.cuda.empty_cache()
+    return dict(losses=losses, ms=statistics.median(step_ms[1:]),
+                step_ms=step_ms, peak=peak, init=init)
+
+
+def _pp_one_device(device, card: str):
+    """24a: the stacked one-device layout against the plain towers: the
+    same initial weights, unstacked; the same losses; step time and
+    peak."""
+    from multimodal_clinical_tpu_torch.benchmarks import food101
+    from multimodal_clinical_tpu_torch.config import load_config
+
+    data = food101.get_data(load_config("food101", overrides=dict(
+        data_path=str(MAXIS_DIR / "none"))))
+    runs = {stages: _food_layout_steps(device, stages, data)
+            for stages in (2, 0)}
+    pp, plain = runs[2], runs[0]
+    if set(pp["init"]) != set(plain["init"]) or any(
+            not torch.equal(v, plain["init"][k])
+            for k, v in pp["init"].items()):
+        raise AssertionError("24a: the pipelined net's initial weights, "
+                             "unstacked, are not the plain net's")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(pp["losses"],
+                                                  plain["losses"]))
+    if not all(math.isfinite(v) for v in pp["losses"]) or gap > MAXIS_PP_RTOL:
+        raise AssertionError(f"24a losses: pipelined {pp['losses']}, plain "
+                             f"{plain['losses']} ({gap:.3e} apart)")
+    for name, run_ in (("pipeline_stages=2, one device", pp),
+                       ("plain towers", plain)):
+        log(f"[model_axis] 24a {card}: Food101 jlogits at batch {FOOD_BATCH} "
+            f"in bf16 (siglip-base, 12 layers, width 768), {name}: step "
+            f"median {run_['ms']:.3f} ms over {MAXIS_STEPS} (each "
+            f"{', '.join(f'{m:.3f}' for m in run_['step_ms'])} with the "
+            f"warm-up), peak {run_['peak']:.3f} GiB, losses {run_['losses']}")
+    log(f"[model_axis] 24a: the same initial weights, unstacked, bit for "
+        f"bit; losses {gap:.3e} apart (held to {MAXIS_PP_RTOL:g})")
+
+
+def _maxis_batches(device, fp32: bool):
+    """24b: two MAXIS_ROWS-row batches at the published geometry (64 ids,
+    224 x 224 pixels in [-1, 1]), the second with MAXIS_PAD padded rows
+    repeating the last real one."""
+    rng = np.random.default_rng(7)
+    out = []
+    for step, real in enumerate((MAXIS_ROWS, MAXIS_ROWS - MAXIS_PAD)):
+        pick = np.arange(MAXIS_ROWS).clip(max=real - 1)
+        batch = {"x1": rng.integers(0, 32000, (MAXIS_ROWS, 64)),
+                 "x2": rng.uniform(-1, 1, (MAXIS_ROWS, 224, 224, 3)).astype(
+                     np.float32),
+                 "label": rng.integers(0, 101, MAXIS_ROWS),
+                 "idx": np.arange(MAXIS_ROWS) + step * MAXIS_ROWS}
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v[pick])).to(device)
+                 for k, v in batch.items()}
+        batch["valid"] = (torch.arange(MAXIS_ROWS, device=device)
+                          < real).float()
+        if not fp32:
+            batch["x2"] = batch["x2"].to(torch.bfloat16)
+        out.append(batch)
+    return out
+
+
+# 24b: seed 0's draws of the siglip-base Food101 net, under the plain
+# net's names, once a process (``_seed0_weights``)
+_SEED0 = {}
+
+
+def _restack(plain, key: str, like: torch.Tensor) -> torch.Tensor:
+    """``key``'s value of a net from the plain net's ``plain`` tree: a
+    pipelined tower's stacked leaf from the layers it holds."""
+    if ".pipeline.stages.layers." not in key:
+        return plain[key]
+    head, rest = key.split(".pipeline.stages.layers.")
+    j, tail = rest.split(".", 1)
+    prefix = f"{head}.encoder.layers."
+    layers = 1 + max(int(k[len(prefix):].split(".")[0]) for k in plain
+                     if k.startswith(prefix))
+    per = layers // like.shape[0]
+    return torch.stack([plain[f"{head}.encoder.layers.{s * per + int(j)}."
+                              f"{tail}"] for s in range(like.shape[0])])
+
+
+@contextlib.contextmanager
+def _seed0_weights():
+    """While open, ``create_train_state`` gives a Food101 net the seed-0
+    draws of the first one it drew, without drawing again (a pipelined
+    net takes them stacked: 24a shows that its own draws are these), and
+    ``spec_module`` builds a net on the meta device once they exist: each
+    siglip-base draw costs seconds on the host."""
+    from multimodal_clinical_tpu_torch.engine import state as state_mod
+
+    draw = state_mod.init_weights
+
+    def init(model, generator):
+        if not _SEED0:
+            draw(model, generator)
+            _SEED0.update(_unstacked({k: v.detach().clone() for k, v in
+                                      model.state_dict().items()}))
+            return model
+        model.load_state_dict({k: _restack(_SEED0, k, v) for k, v in
+                               model.state_dict().items()}, assign=True)
+        return model
+
+    state_mod.init_weights = init
+    try:
+        yield lambda: torch.device("meta") if _SEED0 else (
+            contextlib.nullcontext())
+    finally:
+        state_mod.init_weights = draw
+
+
+def _maxis_run(device, layout=None, fp32: bool = False, permute=None):
+    """24b: MAXIS_RANK_STEPS train steps of Food101 jlogits at siglip-base
+    width (fp32 or bf16) from seed 0 on the two batches, on ``layout``'s
+    mesh over the ranks or, for None, in one process; with ``permute``
+    the batches' rows, and the heads' dropout masks with them, in that
+    order.  Returns the losses, the step times, the peak, and the
+    parameter change after the last step under the plain net's names."""
+    from multimodal_clinical_tpu_torch.benchmarks import food101
+    from multimodal_clinical_tpu_torch.config import load_config
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+    from multimodal_clinical_tpu_torch.engine.steps import (
+        device_dropout, make_train_step,
+    )
+    from multimodal_clinical_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_clinical_tpu_torch.parallel.sharding import place_state
+
+    tag, mesh_shape, overrides = layout or ("one", None, {})
+    mesh = None if mesh_shape is None else make_mesh(mesh_shape, "cuda")
+    args = load_config("food101", overrides=dict(
+        model_type="jlogits",
+        compute_dtype="float32" if fp32 else "bfloat16", **overrides))
+    with _seed0_weights() as spec_module:
+        with spec_module():
+            spec, opt = food101.get_model_spec(args, n_train=2 * MAXIS_ROWS,
+                                               mesh=mesh)
+        state = create_train_state(spec, args, 0, steps_per_epoch=100,
+                                   device=device, **opt)
+    init = _model_tree(state)
+    if mesh is not None:
+        state = place_state(state, mesh)
+    batches = _maxis_batches(device, fp32)
+    dropout = None
+    if permute is not None:
+        order = permute.to(device)
+        batches = [{k: v[order] for k, v in b.items()} for b in batches]
+
+        def dropout(state):
+            draw = device_dropout(state.seed, state.step)
+            return lambda shape, keep, dev: draw(shape, keep, dev)[
+                order.to(dev)]
+
+    train_step = make_train_step(spec, dropout=dropout)
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms = [], []
+    for batch in batches[:1] + batches[1:] * (MAXIS_RANK_STEPS - 1):
+        t = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["train_loss"]))
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    delta = {k: v - init[k] for k, v in _model_tree(state).items()
+             if k in init}
+    sharded = 0 if state.sharded is None else len(state.sharded.leaves)
+    del state, train_step, batches
+    torch.cuda.empty_cache()
+    return dict(tag=tag, losses=losses, step_ms=step_ms, peak=peak,
+                delta=delta, sharded=sharded)
+
+
+def _delta_gap(got, want):
+    """||got - want|| / ||want|| over the model, and the farthest tensor's
+    ratio and name, of two parameter changes."""
+    num = den = 0.0
+    worst = (0.0, "")
+    for key, w in want.items():
+        gap = float((got[key].double() - w.double()).norm())
+        norm = float(w.double().norm())
+        num, den = num + gap ** 2, den + norm ** 2
+        if norm > 0 and gap / norm > worst[0]:
+            worst = (gap / norm, key)
+    return (num / den) ** 0.5, worst[0], worst[1]
+
+
+def _run_gaps(run_, ref):
+    loss = max(abs(a - b) / abs(b) for a, b in zip(run_["losses"],
+                                                   ref["losses"]))
+    return (loss,) + _delta_gap(run_["delta"], ref["delta"])
+
+
+def _crema_run(device, mesh_shape=None, record=False):
+    """24c: MAXIS_CREMAD_STEPS train steps of Crema-D ogm_ge at full width
+    in fp32 (TF32 off), ``bn_fused`` and the stored-index pool, from
+    seed 0 on a global batch of MAXIS_CREMAD_ROWS 10 s clips (the second
+    step's with 2 padded rows), on this rank's data coordinate's rows
+    under ``mesh_shape`` or in one process.  Returns the losses, the
+    parameter change, the launches and, with ``record``, every kernel
+    call's (shape, dtype)."""
+    import dataclasses
+
+    from multimodal_clinical_tpu_torch.benchmarks import cremad
+    from multimodal_clinical_tpu_torch.config import load_config
+    from multimodal_clinical_tpu_torch.engine.state import create_train_state
+    from multimodal_clinical_tpu_torch.engine.steps import make_train_step
+    from multimodal_clinical_tpu_torch.models.resnet import ResNetEncoder
+    from multimodal_clinical_tpu_torch.models.zoo import CremadFusionNet
+    from multimodal_clinical_tpu_torch.parallel.mesh import (
+        batch_sharding, make_mesh,
+    )
+    from multimodal_clinical_tpu_torch.parallel.sharding import place_state
+
+    args = load_config("cremad", overrides=dict(model_type="ogm_ge",
+                                                compute_dtype="float32"))
+    spec, _ = cremad.get_model_spec(args, n_train=CREMAD_CLIPS)
+    # the fusion net sets no bn_fused: its towers are swapped for switched
+    # ones of the same geometry, as the fixture swaps them
+    module = CremadFusionNet(int(args.num_classes), pool_kernel="pallas")
+    module.x1_model = ResNetEncoder(1, pool_kernel="pallas", bn_fused=True)
+    module.x2_model = ResNetEncoder(3, pool_kernel="pallas", bn_fused=True)
+    spec = dataclasses.replace(spec, module=module)
+    state = create_train_state(spec, args, 0, steps_per_epoch=100,
+                               device=device)
+    init = _model_tree(state)
+    rows = slice(None)
+    if mesh_shape is not None:
+        mesh = make_mesh(mesh_shape, "cuda")
+        state = place_state(state, mesh)
+        rows = batch_sharding(mesh, MAXIS_CREMAD_ROWS)
+    full = [_full_batch("cremad", 3, 6, device, valid)
+            for valid in (FULL_BATCH, MAXIS_CREMAD_ROWS - 2)]
+    batches = [{k: v[:MAXIS_CREMAD_ROWS][rows] for k, v in b.items()}
+               for b in full]
+    del full
+    train_step = make_train_step(spec)
+    losses = []
+    with (_recording_calls(dtypes=True) if record
+          else contextlib.nullcontext({})) as calls:
+        launchers = _all_launchers()
+        for fn in launchers.values():
+            fn.launches = 0
+        for i in range(MAXIS_CREMAD_STEPS):
+            state, metrics = train_step(state, batches[min(i, 1)])
+            losses.append(float(metrics["train_loss"]))
+        launches = {n: fn.launches for n, fn in launchers.items()}
+    delta = {k: v - init[k] for k, v in _model_tree(state).items()
+             if "running" not in k and "num_batches" not in k}
+    sharded = 0 if state.sharded is None else len(state.sharded.leaves)
+    del state, train_step, batches
+    torch.cuda.empty_cache()
+    return dict(losses=losses, delta=delta, launches=launches,
+                calls=dict(calls), sharded=sharded)
+
+
+def _wait_for(path: Path, timeout: float = 600.0):
+    """The file at ``path``, on this process's card, once another process
+    has written it."""
+    deadline = time.monotonic() + timeout
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} not written")
+        time.sleep(0.2)
+    return torch.load(path, weights_only=False, map_location="cuda:0")
+
+
+def _save_atomic(obj, path: Path) -> None:
+    torch.save(obj, path.with_suffix(".part"))
+    os.replace(path.with_suffix(".part"), path)
+
+
+def maxis_rank_main(argv) -> int:
+    """One rank of phase 24: ``python3 chip_smoke.py --maxis-rank R
+    --maxis-world W --dist-addr HOST:PORT --dist-out DIR``.  With W = 2
+    (24b): each of MAXIS_LAYOUTS in fp32 and bf16 on the two ranks, rank
+    0 then holding them against the one-process references that the
+    parent writes to DIR meanwhile.  With W = 4 (24c): the Crema-D run on
+    ``{data: 2, model: 2}``, rank 0 recording every kernel call and
+    holding it against the parent's one-process run.  Writes its results
+    to ``DIR/rank{R}.pt``."""
+    from multimodal_clinical_tpu_torch.parallel import distributed
+
+    rank, world = int(argv[1]), int(argv[3])
+    addr, out = argv[5], Path(argv[7])
+    # six ranks and the parent share the host's cores
+    torch.set_num_threads(2)
+    device = torch.device("cuda", 0)  # the ranks share the card
+    torch.cuda.set_device(device)
+    torch.empty(0, device=device)  # the CUDA context, before its counters
+    distributed.initialize_if_requested(SimpleNamespace(
+        dist_coordinator=addr, dist_num_processes=world,
+        dist_process_id=rank), device)
+    results = {"backend": distributed.backend()}
+    with _torch_set(False, False, torch.get_num_threads()), \
+            _cudnn_deterministic(True):
+        if world == 2:
+            runs = {}
+            for layout in MAXIS_LAYOUTS:
+                for fp32 in (True, False):
+                    key = f"{layout[0]}_{'fp32' if fp32 else 'bf16'}"
+                    runs[key] = _maxis_run(device, layout, fp32=fp32)
+            for key, run_ in runs.items():
+                if rank == 0:
+                    ref = _wait_for(out / f"ref_{key.rsplit('_', 1)[1]}.pt")
+                    run_["gaps"] = _run_gaps(run_, ref)
+                del run_["delta"]
+                results[key] = run_
+        else:
+            run_ = _crema_run(device, {"data": 2, "model": 2},
+                              record=rank == 0)
+            if rank == 0:
+                one = _wait_for(out / "ref_cremad.pt")
+                run_["gaps"] = _run_gaps(run_, one)
+                run_["one_losses"] = one["losses"]
+            del run_["delta"]
+            results["cremad"] = run_
+    torch.save(results, out / f"rank{rank}.pt")
+    distributed.shutdown()
+    return 0
+
+
+def _start_ranks(world: int):
+    """Starts ``world`` ranks of ``maxis_rank_main`` that share the card
+    over gloo, in a work directory of their own."""
+    work = MAXIS_DIR / f"ranks{world}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    addr = f"localhost:{_free_port()}"
+    root = Path(__file__).resolve().parent
+    procs, logs = [], []
+    for rank in range(world):
+        logs.append(open(work / f"rank{rank}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(root / "chip_smoke.py"), "--maxis-rank",
+             str(rank), "--maxis-world", str(world), "--dist-addr", addr,
+             "--dist-out", str(work)],
+            cwd=root, stdout=logs[-1], stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONUNBUFFERED": "1"}))
+    return dict(world=world, work=work, procs=procs, logs=logs,
+                t=time.perf_counter())
+
+
+def _stop_ranks(group) -> None:
+    for proc in group["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for f in group["logs"]:
+        f.close()
+
+
+def _collect_ranks(group, timeout: float = 600.0):
+    """The ranks' results and wall seconds, once they have exited."""
+    try:
+        for proc in group["procs"]:
+            proc.wait(timeout=max(1.0, timeout - (time.perf_counter()
+                                                  - group["t"])))
+    finally:
+        _stop_ranks(group)
+    wall = time.perf_counter() - group["t"]
+    world, work = group["world"], group["work"]
+    if any(p.returncode != 0 for p in group["procs"]):
+        raise AssertionError(
+            f"phase 24 a rank of {world} failed: exits "
+            f"{[p.returncode for p in group['procs']]}\n" + "\n".join(
+                (work / f"rank{r}.log").read_text()[-3000:]
+                for r in range(world)))
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    return ranks, wall
+
+
+def _maxis_references(device, groups):
+    """The one-process runs the ranks are held against, each written to
+    its group's directory as it is done: Crema-D's (24c), then
+    SigLIP's fp32, bf16 and the bf16 witness (24b).  Returns 24b's
+    without their parameter changes."""
+    with _torch_set(False, False, torch.get_num_threads()), \
+            _cudnn_deterministic(True):
+        _save_atomic(_crema_run(device), groups[4]["work"] / "ref_cremad.pt")
+        perm = torch.randperm(MAXIS_ROWS,
+                              generator=torch.Generator().manual_seed(0))
+        refs = {}
+        for name, kwargs in (("fp32", dict(fp32=True)), ("bf16", {}),
+                             ("witness", dict(permute=perm))):
+            refs[name] = _maxis_run(device, **kwargs)
+            if name != "witness":
+                _save_atomic(refs[name], groups[2]["work"] / f"ref_{name}.pt")
+    gaps = {"witness": _run_gaps(refs["witness"], refs["bf16"]),
+            "rounding": _run_gaps(refs["bf16"], refs["fp32"])}
+    return {k: {n: v for n, v in r.items() if n != "delta"}
+            for k, r in refs.items()}, gaps
+
+
+def _maxis_two_ranks(card: str, ranks, wall, refs, gaps):
+    """24b: each layout on two ranks sharing the card over gloo, against
+    one process: fp32 (TF32 off) to DIST_LOSS_RTOL and DIST_UPDATE_TOL,
+    bf16 to DIST_BF16_WITNESS times the larger of the witness's gap and
+    bf16's own distance from fp32."""
+    r0, r1 = ranks
+    if r0["backend"] != "gloo":
+        raise AssertionError(f"24b backend {r0['backend']}")
+    witness, rounding = gaps["witness"], gaps["rounding"]
+    scale = [max(w, r) for w, r in zip(witness[:2], rounding[:2])]
+    log(f"[model_axis] 24b {card}: Food101 jlogits at siglip-base width, "
+        f"{MAXIS_ROWS} rows, {MAXIS_RANK_STEPS} steps a run, two ranks "
+        f"sharing the card over gloo (a correctness check: gloo moves CUDA "
+        f"tensors through the host; 24c's four ranks and the one-process "
+        f"runs share the card meanwhile), wall {wall:.1f} s; one process: "
+        + "; ".join(f"{k} losses {v['losses']}, steps "
+                    f"{', '.join(f'{m:.1f}' for m in v['step_ms'])} ms, "
+                    f"peak {v['peak']:.2f} GiB" for k, v in refs.items())
+        + f"; the bf16 witness (rows permuted) against bf16: losses "
+        f"{witness[0]:.3e}, parameter change {witness[1]:.3e}; bf16 against "
+        f"fp32: losses {rounding[0]:.3e}, parameter change "
+        f"{rounding[1]:.3e}")
+    bad = []
+    for tag, _, _ in MAXIS_LAYOUTS:
+        for dtype in ("fp32", "bf16"):
+            key = f"{tag}_{dtype}"
+            got, other = r0[key], r1[key]
+            loss, update, far, name = got["gaps"]
+            log(f"[model_axis] 24b {key}: rank 0 steps "
+                f"{', '.join(f'{m:.1f}' for m in got['step_ms'])} ms, peak "
+                f"{got['peak']:.2f} GiB, {got['sharded']} leaves sharded, "
+                f"losses {got['losses']}; against one process: losses "
+                f"{loss:.3e}, parameter change {update:.3e} (the farthest "
+                f"tensor {far:.3e}, {name})")
+            if (got["losses"] != other["losses"] or not got["sharded"]
+                    or not all(math.isfinite(v) for v in got["losses"])):
+                bad.append(f"{key}: the ranks part or nothing sharded")
+            elif dtype == "fp32" and (loss > DIST_LOSS_RTOL
+                                      or update > DIST_UPDATE_TOL):
+                bad.append(f"{key}: {loss:.3e}, {update:.3e}")
+            elif dtype == "bf16" and not all(
+                    g <= max(DIST_BF16_WITNESS * w, DIST_BF16_FLOOR)
+                    for g, w in zip((loss, update), scale)):
+                bad.append(f"{key}: {loss:.3e}, {update:.3e} against "
+                           f"{DIST_BF16_WITNESS:g} x {scale}")
+    if bad:
+        raise AssertionError("24b: " + "; ".join(bad))
+
+
+def _check_model_axis_shapes(calls):
+    """Rows 2-5 against their plain versions at every (shape, dtype) that
+    24c's rank 0 gave them; returns each kernel's checked shapes."""
+    bn = sorted(set(calls["bn_sums"]) | set(calls["bn_bwd_sums"]))
+    pools = sorted(set(calls["maxpool_fwd"]) | set(calls["maxpool_bwd"]))
+    if not (bn and pools):
+        raise AssertionError(f"24c recorded {bn}, {pools}")
+    worst = [0.0, 0.0]
+    for i, ((m, c), dtype) in enumerate(bn):
+        fwd, bwd = _check_bn(*_bn_case(m, c, getattr(torch, dtype), 300 + i),
+                             f"24c ({m}, {c}) {dtype}")
+        worst = [max(worst[0], fwd[1]), max(worst[1], bwd[1])]
+        torch.cuda.empty_cache()
+    for shape, dtype in pools:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn(shape, device="cuda", dtype=getattr(torch, dtype),
+                        generator=gen).clamp_min_(0)
+        _check_pool(x, f"24c {shape} {dtype}")
+        del x
+    torch.cuda.empty_cache()
+    fmt = lambda entries: ", ".join(f"{tuple(s)} {d}" for s, d in entries)
+    log(f"[kernels] 24c, every shape rank 0's run gave rows 2-5, against "
+        f"the plain versions: BN sums at {len(bn)} ({fmt(bn)}): forward "
+        f"within {worst[0]:.2e}, backward within {worst[1]:.2e} of the "
+        f"terms' magnitude, two launches bit-equal; max-pool at "
+        f"{len(pools)} ({fmt(pools)}): forward and backward equal")
+    listed = lambda entries: [[list(s), d] for s, d in entries]
+    return {"bn_sums": listed(bn), "bn_bwd_sums": listed(bn),
+            "maxpool_fwd": listed(pools), "maxpool_bwd": listed(pools)}
+
+
+def _maxis_four_ranks(card: str, ranks, wall):
+    """24c: Crema-D ogm_ge on ``{data: 2, model: 2}`` over four ranks
+    sharing the card over gloo, against one process in fp32; returns rank
+    0's launches and the shapes at which rows 2-5 were held."""
+    got = ranks[0]["cremad"]
+    loss, update, far, name = got["gaps"]
+    log(f"[model_axis] 24c {card}: Crema-D ogm_ge at full width (fp32, TF32 "
+        f"off, bn_fused, the stored-index pool), {MAXIS_CREMAD_ROWS} rows, "
+        f"{{data: 2, model: 2}} over four ranks sharing the card over gloo, "
+        f"wall {wall:.1f} s; {got['sharded']} leaves sharded; losses "
+        f"{got['losses']} against one process's {got['one_losses']}: "
+        f"{loss:.3e} apart, parameter change {update:.3e} (the farthest "
+        f"tensor {far:.3e}, {name}); launches {got['launches']}")
+    coords = [r["cremad"]["losses"] for r in ranks]
+    if (any(c != coords[0] for c in coords[1:]) or not got["sharded"]
+            or loss > DIST_LOSS_RTOL or update > DIST_UPDATE_TOL
+            or not all(got["launches"][n] for n in (
+                "bn_sums", "bn_bwd_sums", "maxpool_fwd", "maxpool_bwd"))):
+        raise AssertionError(f"24c: losses {coords}, gaps {got['gaps']}, "
+                             f"launches {got['launches']}")
+    return got["launches"], _check_model_axis_shapes(got["calls"])
+
+
+def phase_model_axis(device, card: str, kernels):
+    """Phase 24: the model and stage axes.  (a) the stacked one-device
+    layout through the CLI and against the plain towers; (b) TP, TP x SP
+    and GPipe on two ranks sharing the card; (c) TP on Crema-D's towers
+    with rows 2-5 over four ranks; (b) and (c) run together, beside the
+    one-process runs they are held against.  The ``model_axis`` path's launches are
+    24c rank 0's, where rows 2-5 are then held against their plain
+    versions at every shape they were given; ``model_axis_siglip`` (24a,
+    24b) launches none."""
+    t0 = time.perf_counter()
+    launchers = _all_launchers()
+    for fn in launchers.values():
+        fn.launches = 0
+    with _torch_set(*TORCH_DEFAULTS):
+        _pp_one_device(device, card)
+        # 24b's two ranks and 24c's four share the card with 24a's CLI and
+        # the one-process references, which the ranks wait for
+        groups = {}
+        try:
+            groups = {world: _start_ranks(world) for world in (2, 4)}
+            _pp_cli(device, card)
+            siglip = {n: fn.launches for n, fn in launchers.items()}
+            refs, gaps = _maxis_references(device, groups)
+            two = _collect_ranks(groups[2])
+            four = _collect_ranks(groups[4])
+        finally:
+            for group in groups.values():
+                _stop_ranks(group)
+        _maxis_two_ranks(card, *two, refs, gaps)
+        crema, shapes = _maxis_four_ranks(card, *four)
+    shutil.rmtree(MAXIS_DIR, ignore_errors=True)
+    for entry in kernels:
+        paths = entry.setdefault("launches_by_path", {})
+        paths["model_axis"] = crema.get(entry["name"], 0)
+        paths["model_axis_siglip"] = siglip.get(entry["name"], 0)
+        if entry["name"] in shapes:
+            entry.setdefault("checked_shapes_by_path", {})[
+                "model_axis"] = shapes[entry["name"]]
+    log(f"[model_axis] launches of every TPU kernel: model_axis {crema}; "
+        f"model_axis_siglip {siglip}; phase 24 took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 @contextlib.contextmanager
 def _phase_time(name: str, seconds: dict):
     """Adds the block's wall seconds to ``seconds[name]`` and logs them."""
@@ -6007,6 +6685,8 @@ def main() -> int:
         phase_switches(device, card, kernels)
     with _phase_time("23", seconds):
         phase_dist(device, card, kernels)
+    with _phase_time("24", seconds):
+        phase_model_axis(device, card, kernels)
     log(f"[time] every phase, wall s: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
         f"the script so far {time.perf_counter() - t0:.1f} s")
     missing = [e["name"] for e in kernels if not e["launches"]]
@@ -6038,6 +6718,14 @@ def main() -> int:
                          "maxpool_fwd", "maxpool_bwd")):
         raise AssertionError("a kernel of phase 23 did not launch there or "
                              "was not checked at its shapes")
+    # rows 2-5 on phase 24c's path, held at its shapes; none on SigLIP's
+    checked = {e["name"]: e.get("checked_shapes_by_path", {}).get(
+        "model_axis") for e in kernels}
+    if not all(sweep[n]["model_axis"] and checked[n] for n in (
+            "bn_sums", "bn_bwd_sums", "maxpool_fwd", "maxpool_bwd")) or any(
+                sweep[n]["model_axis_siglip"] for n in sweep):
+        raise AssertionError("a kernel of phase 24 did not launch there or "
+                             "was not checked at its shapes")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6049,4 +6737,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
         sys.exit(dist_rank_main(sys.argv[1:]))
+    if sys.argv[1:2] == ["--maxis-rank"]:
+        sys.exit(maxis_rank_main(sys.argv[1:]))
     sys.exit(main())

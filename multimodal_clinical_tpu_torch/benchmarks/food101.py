@@ -163,7 +163,10 @@ def load_pretrained(args, state):
     return state
 
 
-def get_model_spec(args, n_train: int) -> Tuple[ModelSpec, Dict]:
+def get_model_spec(args, n_train: int, mesh=None) -> Tuple[ModelSpec, Dict]:
+    """``mesh``: the run's (``parallel/mesh.py``), which the SigLIP towers
+    take where ``pipeline_stages`` > 1 (GPipe over its stage axis) or
+    ``sequence_sharding`` is set (the tokens over its model axis)."""
     model_type = getattr(args, "model_type", "qmf")
     if model_type not in MODEL_TYPES:
         raise NotImplementedError(f"food101 model_type {model_type!r}")
@@ -184,7 +187,14 @@ def get_model_spec(args, n_train: int) -> Tuple[ModelSpec, Dict]:
                          else None),
             sched_step_size=500, sched_gamma=0.75)
         return spec, {}
-    module = Food101FusionNet(int(args.num_classes), resolve_dtype(args))
+    pp_stages = int(getattr(args, "pipeline_stages", 0) or 0)
+    seq_sharding = bool(getattr(args, "sequence_sharding", False))
+    module = Food101FusionNet(
+        int(args.num_classes), resolve_dtype(args),
+        pipeline_stages=pp_stages,
+        pipeline_microbatches=int(getattr(args, "pipeline_microbatches", 4)),
+        sequence_sharding=seq_sharding,
+        mesh=mesh if (pp_stages > 1 or seq_sharding) else None)
     common = dict(module=module, sched_step_size=50, sched_gamma=0.5)
     if model_type == "ogm_ge":
         spec = ModelSpec(contract="ogm_ge",

@@ -16,9 +16,10 @@ Layout, as the JAX package writes it:
                                ``keep_last``
     <ckpt_dir>/meta.json       best metric and resume bookkeeping
 
-Under data parallelism every rank computes the tree (FSDP gathers its
-slices for it), rank 0 alone writes, and every rank reads a checkpoint
-after a barrier (the JAX package's primary-process writes).
+Under several ranks every rank computes the tree (the sharded leaves'
+blocks gathered for it: TP, stage slices, FSDP), rank 0 alone writes,
+and every rank reads a checkpoint after a barrier (the JAX package's
+primary-process writes).
 
 Each checkpoint is a directory holding ``state.pt``.  A save writes
 ``<name>.pending/state.pt`` (through a temporary file and a rename, so the
@@ -47,16 +48,15 @@ PENDING = ".pending"
 
 
 def state_to_tree(state: TrainState) -> Dict[str, Any]:
-    """The full train state; under FSDP its slices gathered whole (a
-    collective: every rank calls it)."""
-    fsdp = getattr(state, "fsdp", None)
-    if fsdp is not None:
-        fsdp.gather()
+    """The full train state; its sharded leaves (TP, stage, FSDP)
+    gathered whole (a collective: every rank calls it)."""
+    sharded = getattr(state, "sharded", None)
     return {
         "step": int(state.step),
-        "model": state.model.state_dict(),
-        "optimizer": (state.optimizer.state_dict() if fsdp is None else
-                      fsdp.full_optimizer_state(state.optimizer)),
+        "model": (state.model.state_dict() if sharded is None else
+                  sharded.full_model_state(state.model)),
+        "optimizer": (state.optimizer.state_dict() if sharded is None else
+                      sharded.full_optimizer_state(state.optimizer)),
         "ema": state.ema,
         "seed": int(state.seed),
         "qmf_correctness": state.qmf_correctness,
@@ -68,18 +68,17 @@ def tree_into_state(state: TrainState, tree: Dict[str, Any],
                     weights_only: bool = False) -> TrainState:
     """Load ``tree`` into ``state`` in place; ``weights_only`` takes the
     model's parameters and BN buffers only (a warm start)."""
-    fsdp = getattr(state, "fsdp", None)
-    if fsdp is not None:
-        fsdp.gather()  # the whole leaves to load into
-    state.model.load_state_dict(tree["model"])
-    if fsdp is not None:
-        fsdp.reshard()
+    sharded = getattr(state, "sharded", None)
+    if sharded is None:
+        state.model.load_state_dict(tree["model"])
+    else:
+        sharded.load_full_model_state(state.model, tree["model"])
     if weights_only:
         return state
-    if fsdp is None:
+    if sharded is None:
         state.optimizer.load_state_dict(tree["optimizer"])
     else:
-        fsdp.load_full_optimizer_state(state.optimizer, tree["optimizer"])
+        sharded.load_full_optimizer_state(state.optimizer, tree["optimizer"])
     device = state.ema.device
     state.ema = tree["ema"].to(device)
     for key in ("qmf_correctness", "qmf_confidence"):

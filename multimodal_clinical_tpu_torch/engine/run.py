@@ -3,17 +3,19 @@
 
 Resolve the device and the mesh over the ranks, construct loaders with
 the dataset's sampler policy (each rank its shard of the global stream),
-initialise the TrainState on the device (FSDP with ``fsdp: true``), fit
-with best-checkpointing, and test (utils/run_trainer.py:6-70).  S seeds
-train together in one process through ``engine/multiseed.py``.  Of the
-JAX package's parallel settings the data axis runs here
-(``dist_*``, ``mesh_shape: {data: D}``, ``fsdp``); the model and stage
-axes, ``pipeline_stages`` and ``sequence_sharding`` raise until ROADMAP.md
-item 18b.
+initialise the TrainState on the device and place it on the mesh (tensor
+parallelism on the model axis, GPipe stages on the stage axis, FSDP with
+``fsdp: true``), fit with best-checkpointing, and test
+(utils/run_trainer.py:6-70).  S seeds train together in one process
+through ``engine/multiseed.py``.  The JAX package's parallel settings:
+``dist_*``, ``mesh_shape: {data: D, model: M, stage: S}``, ``fsdp``, and
+for the benchmarks whose ``get_model_spec`` takes a mesh (Food101)
+``pipeline_stages``, ``pipeline_microbatches`` and ``sequence_sharding``.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -23,7 +25,7 @@ import torch
 from ..data.loader import Loader
 from ..data.sampler import RandomSampler, SequentialSampler, WeightedSampler
 from ..parallel.distributed import rank, world_size
-from ..parallel.mesh import DATA_AXIS, Mesh, make_mesh, refuse_item_18b
+from ..parallel.mesh import DATA_AXIS, Mesh, make_mesh
 from ..parallel.sharding import place_state
 from ..utils.device import resolve_device
 from .checkpoint import BestCheckpointer
@@ -78,17 +80,21 @@ def build_loaders(args, data: DataBundle, device="cuda",
                   ) -> Tuple[Loader, Loader, Loader]:
     """Per-split loaders; the splits' sampler seeds are offset 0/1/2.
     Under data parallelism every rank derives the same global per-epoch
-    index stream and loads its strided shard of it
-    (``stream[rank::world]``, ``data/sampler.py``), ``batch_size / world``
-    rows a step, onto its own device."""
+    index stream and loads its data coordinate's strided shard of it
+    (``stream[d::D]``, ``data/sampler.py``), ``batch_size / D`` rows a
+    step, onto its own device: the ranks of one data coordinate (its
+    model and stage ranks) take the same rows, as JAX's ``P("data")``
+    gives them."""
     bs = int(args.batch_size)
     dp = 1 if mesh is None else mesh.shape[DATA_AXIS]
     if bs % dp != 0:
         raise ValueError(
             f"batch_size {bs} not divisible by data-axis size {dp}")
-    pi, pc = rank(), world_size()
+    pc = world_size()
     if bs % pc != 0:
         raise ValueError(f"batch_size {bs} not divisible by process count {pc}")
+    pi, pc = ((rank(), pc) if mesh is None
+              else (mesh.coordinate(DATA_AXIS), dp))
     seed = int(getattr(args, "seed", 0))
     workers = resolve_loader_workers(args)
 
@@ -105,12 +111,12 @@ def build_loaders(args, data: DataBundle, device="cuda",
     )
 
 
-def _refuse_parallel_settings(args) -> None:
-    """The settings of the JAX package's model and stage axes: ROADMAP.md
-    item 18b."""
-    refuse_item_18b(
-        pipeline_stages=int(getattr(args, "pipeline_stages", 0) or 0),
-        sequence_sharding=bool(getattr(args, "sequence_sharding", False)))
+def _accepts_mesh(benchmark_module) -> bool:
+    """Whether the benchmark's ``get_model_spec`` takes a ``mesh`` (or
+    ``**kwargs``): the benchmarks with a mesh-aware model opt in."""
+    params = inspect.signature(benchmark_module.get_model_spec).parameters
+    return "mesh" in params or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
 
 
 def run_benchmark(args, benchmark_module, profile_dir: Optional[str] = None,
@@ -118,12 +124,20 @@ def run_benchmark(args, benchmark_module, profile_dir: Optional[str] = None,
     """Full fit+test for one benchmark; returns the test-epoch summary.
     ``device`` is this rank's (``parallel/distributed.py``)."""
     device = resolve_device(device)
-    _refuse_parallel_settings(args)
     mesh = make_mesh(getattr(args, "mesh_shape", None) or None,
                      device.type)
     data: DataBundle = benchmark_module.get_data(args)
+    # a pipeline_stages config on a benchmark whose model takes no mesh is
+    # a loud error, in the JAX package's words (engine/run.py:147-155)
+    accepts_mesh = _accepts_mesh(benchmark_module)
+    if int(getattr(args, "pipeline_stages", 0) or 0) > 1 and not accepts_mesh:
+        raise NotImplementedError(
+            f"pipeline_stages is set but the {args.dir!r} benchmark's "
+            "get_model_spec does not accept a mesh — pipeline parallelism "
+            "is wired for benchmarks that opt in (food101)")
     spec, opt_kwargs = benchmark_module.get_model_spec(
-        args, n_train=len(data.train))
+        args, n_train=len(data.train),
+        **({"mesh": mesh} if accepts_mesh else {}))
     train_loader, val_loader, test_loader = build_loaders(args, data, device,
                                                           mesh)
     steps_per_epoch = max(1, -(-len(data.train) // int(args.batch_size)))
@@ -147,8 +161,9 @@ def run_benchmark(args, benchmark_module, profile_dir: Optional[str] = None,
         if loader_ckpt.restore_last(state, weights_only=True) is None:
             loader_ckpt.restore_best(state, weights_only=True)
         print(f"[run] warm-started weights from {init_ckpt}")
-    # FSDP over the data axis with ``fsdp: true``; else every leaf
-    # replicated (every rank draws and loads the same weights)
+    # the TP and stage rules where the mesh has those axes, FSDP over the
+    # data axis with ``fsdp: true``, every other leaf replicated (every
+    # rank draws and loads the same weights)
     state = place_state(state, mesh, fsdp=bool(getattr(args, "fsdp", False)))
     trainer = Trainer(args, spec, state, train_loader, val_loader, test_loader,
                       profile_dir=profile_dir)

@@ -101,11 +101,12 @@ class TrainState:
     # tensors under the qmf contract, else None
     qmf_correctness: Optional[torch.Tensor] = None
     qmf_confidence: Optional[torch.Tensor] = None
-    # the data axis's process group that the steps' collectives run over
-    # (``parallel/sharding.py::place_state``), None for one rank; FSDP of
-    # the model's large leaves over it (``ShardedParams``), else None
+    # the data axis's process group that the steps' gradient sums run
+    # over (``parallel/sharding.py::place_state``), None for one rank; the
+    # leaves sharded over the mesh (TP, stage, FSDP: ``ShardedParams``),
+    # else None
     data_axis: Optional[Any] = None
-    fsdp: Optional[Any] = None
+    sharded: Optional[Any] = None
 
     def step_generator(self) -> torch.Generator:
         return step_generator(self.seed, self.step)

@@ -17,13 +17,22 @@ batch's model outputs, labels, masks and ids, its own rows kept live
 and the QMF History on the global batch, as the JAX step does over its
 data mesh; every rank's backward reaches only its own rows, so the sum of
 the ranks' gradients (``sum_gradients``) is the global batch's gradient.
-The OGM-GE modulation follows that sum, and FSDP (``state.fsdp``) gathers
-its sharded leaves before the forward and keeps its slices after.  The
-collectives run over the state's data axis (``state.data_axis``), which
-the train step also hands to the ops that see the global batch (global
-BatchNorm, the dropout and SpecAugment draws) for its extent
-(``parallel/distributed.py::data_axis``).  For one rank (None) none of
-this issues a collective.
+The OGM-GE modulation follows that sum, and the sharded leaves
+(``state.sharded``: FSDP, and the model axis's leaves that do not compute
+on their block) are gathered before the forward and keep their blocks
+after.  The gathers of the global batch and the gradient sums run over
+the state's data axis (``state.data_axis``) only, which the train step
+also hands to the ops that see the global batch (global BatchNorm, the
+dropout and SpecAugment draws) for its extent
+(``parallel/distributed.py::data_axis``).  The ranks of one data
+coordinate compute the same loss, so each leaf ends the backward with
+the same gradient on all of them: a column-parallel Dense's block its own
+(Megatron's f and g, ``parallel/sharding.py``), a stage's slice its
+stage's, and every other leaf the whole gradient, because the pipeline's
+backward hands stage 0's input gradient to every stage rank
+(``parallel/pipeline.py``) and a sequence-sharded region sums its
+leaves' gradients over the model axis (``models/siglip.py``).  For one
+rank (None) none of this issues a collective.
 """
 
 from __future__ import annotations
@@ -267,8 +276,8 @@ def make_train_step(
             return _train_step(state, batch)
 
     def _train_step(state: TrainState, batch: Batch):
-        if state.fsdp is not None:
-            state.fsdp.gather()
+        if state.sharded is not None:
+            state.sharded.gather()
         if spec.device_preprocess is not None:
             batch = spec.device_preprocess(batch, state.step_generator(), True)
         state.model.train()
@@ -286,13 +295,13 @@ def make_train_step(
             modulate_gradients(state.model, raw[0], raw[1], label,
                                ogm_noise(state), alpha=spec.ogm_alpha,
                                modulation=spec.grad_mod_type, valid=valid)
-        if state.fsdp is not None:
-            state.fsdp.keep_grad_slices()
+        if state.sharded is not None:
+            state.sharded.keep_grad_slices()
         for group in state.optimizer.param_groups:
             group["lr"] = state.lr_schedule(state.step)
         state.optimizer.step()
-        if state.fsdp is not None:
-            state.fsdp.release()
+        if state.sharded is not None:
+            state.sharded.release()
         with torch.no_grad():
             state.ema, metrics = _train_metrics(spec, state.ema, aux,
                                                 loss.detach(), label, valid)
@@ -396,8 +405,8 @@ def eval_outputs(spec: ModelSpec, batch: Batch, out, history) -> Dict:
 def make_eval_step(spec: ModelSpec) -> Callable[[TrainState, Batch], Dict]:
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
-        if state.fsdp is not None:
-            state.fsdp.gather()
+        if state.sharded is not None:
+            state.sharded.gather()
         if spec.device_preprocess is not None:
             batch = spec.device_preprocess(batch, None, False)
         state.model.eval()

@@ -15,7 +15,9 @@ classifier rows are permuted from the NHWC flatten (7, 7, C) to torch's
 C-major one; attention's ``DenseGeneral`` kernels (D, H, d) and (H, d, D)
 flatten their head axes, and the SigLIP MAP head's query, key and value
 stack into torch ``nn.MultiheadAttention``'s packed ``in_proj``; a
-SigLIP position table (1, L, D) drops its leading axis.
+SigLIP position table (1, L, D) drops its leading axis; a pipelined
+tower's ``pipeline/stages`` leaves keep their leading stage dim, each
+stage's slice in its block's layout.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.sharding import STAGES
 from .bert import BertEncoder
 from .common import BatchNormBase, TorchDense
 from .pretrained import BiasConv, VGG11Slim
@@ -133,23 +136,40 @@ def _siglip_keys(model: SigLIPModel, prefix: str,
         keys[tkey + ".weight"] = ("params", fpath + ("kernel",), "dense")
         keys[tkey + ".bias"] = ("params", fpath + ("bias",), "vector")
 
+    def block(tb, pb, stacked=""):
+        """One EncoderBlock; ``stacked``: the kinds' prefix of a
+        ``PipelinedEncoderStack``'s blocks (a leading stage dim)."""
+        for ln in ("layer_norm1", "layer_norm2"):
+            keys[f"{tb}{ln}.weight"] = ("params", pb + (ln, "scale"),
+                                        stacked + "vector")
+            keys[f"{tb}{ln}.bias"] = ("params", pb + (ln, "bias"),
+                                      stacked + "vector")
+        for hf, fl in zip(("q_proj", "k_proj", "v_proj", "out_proj"),
+                          ("query", "key", "value", "out")):
+            pa = pb + ("self_attn", fl)
+            out = fl == "out"
+            keys[f"{tb}self_attn.{hf}.weight"] = (
+                "params", pa + ("kernel",),
+                stacked + ("heads_out" if out else "heads_in"))
+            keys[f"{tb}self_attn.{hf}.bias"] = (
+                "params", pa + ("bias",),
+                stacked + ("vector" if out else "flat"))
+        for fc in ("fc1", "fc2"):
+            keys[f"{tb}mlp.{fc}.weight"] = (
+                "params", pb + (f"mlp_{fc}", "kernel"), stacked + "dense")
+            keys[f"{tb}mlp.{fc}.bias"] = (
+                "params", pb + (f"mlp_{fc}", "bias"), stacked + "vector")
+
     for tower in ("text_model", "vision_model"):
         t, p = f"{prefix}{tower}.", path + (tower,)
-        for i in range(len(getattr(model, tower).encoder.layers)):
-            tb, pb = f"{t}encoder.layers.{i}.", p + (f"layers_{i}",)
-            norm(tb + "layer_norm1", pb + ("layer_norm1",))
-            norm(tb + "layer_norm2", pb + ("layer_norm2",))
-            for hf, fl in zip(("q_proj", "k_proj", "v_proj", "out_proj"),
-                              ("query", "key", "value", "out")):
-                pa = pb + ("self_attn", fl)
-                out = fl == "out"
-                keys[f"{tb}self_attn.{hf}.weight"] = (
-                    "params", pa + ("kernel",),
-                    "heads_out" if out else "heads_in")
-                keys[f"{tb}self_attn.{hf}.bias"] = (
-                    "params", pa + ("bias",), "vector" if out else "flat")
-            dense(tb + "mlp.fc1", pb + ("mlp_fc1",))
-            dense(tb + "mlp.fc2", pb + ("mlp_fc2",))
+        stack = getattr(getattr(model, tower), "pipeline", None)
+        if stack is None:
+            for i in range(len(getattr(model, tower).encoder.layers)):
+                block(f"{t}encoder.layers.{i}.", p + (f"layers_{i}",))
+        else:
+            for j in range(len(stack._block.layers)):
+                block(f"{t}pipeline.stages.layers.{j}.",
+                      p + ("pipeline", "stages", f"layers_{j}"), STAGES)
         keys[t + "embeddings.position_embedding.weight"] = (
             "params", p + ("position_embedding",), "table")
     t, p = f"{prefix}text_model.", path + ("text_model",)
@@ -281,7 +301,12 @@ def jax_key_map(model: nn.Module) -> KeyMap:
 
 def to_torch_layout(kind: str, leaf, dtype=np.float32) -> np.ndarray:
     """A flax leaf (a list of leaves for a packed kind) in the torch
-    layout of its ``kind``, as ``dtype``."""
+    layout of its ``kind``, as ``dtype``; a stacked kind (``STAGES``
+    prefix) each stage's slice in its stage kind's."""
+    if kind.startswith(STAGES):
+        inner = kind[len(STAGES):]
+        return np.stack([to_torch_layout(inner, a, dtype)
+                         for a in np.asarray(leaf)])
     if kind == "gates":
         return np.concatenate([to_torch_layout("dense", a, dtype)
                                for a in leaf])

@@ -28,20 +28,41 @@ embedding, a xavier-uniform probe.
 Numerics follow the flax modules: the compute ``dtype`` (bf16 in the
 config) for the projections, the patch conv, attention and the MLPs,
 fp32 parameters, LayerNorms that give fp32, the softmax in the compute
-dtype (``zoo.dot_product_attention``).  The JAX package's pipelined
-stacks and sequence sharding are ROADMAP.md item 18b.
+dtype (``zoo.dot_product_attention``).
+
+Two scaling switches, as in the JAX package.  ``pipeline_stages`` S > 1
+holds each tower's blocks as a ``PipelinedEncoderStack``: S stages of
+``layers / S`` blocks, every parameter stacked on a leading S dim under
+``pipeline.stages``; it runs as GPipe over a mesh's stage axis
+(``parallel/pipeline.py``) and, without one, as the sequential loop over
+the stages that JAX's ``lax.scan`` gives.  ``sequence_sharding`` under a
+mesh's model axis M > 1 shards the tokens between the blocks: each model
+rank holds L / M of them (an indivisible L stays whole), the LayerNorms
+and MLPs run on those, attention's queries are the rank's tokens and its
+keys and values every token's (the LayerNorm'd tokens gathered over the
+model axis), and the blocks' parameters are used whole, so their
+gradients are summed over the model axis; the tokens are gathered again
+before the final LayerNorm.  JAX states only the layout (``P(None,
+"model")``) and GSPMD places the gathers.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Tuple
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
-from .common import lecun_normal_
+from ..parallel.distributed import copy_to_axis, gather_from_axis, \
+    gather_partial
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, STAGE_AXIS, \
+    constrain_model_parallel
+from .common import init_weights, lecun_normal_
 from .pretrained import copy_by_name, torch_state_dict
 from .zoo import Dense, LayerNorm, MultiHeadDotProductAttention
 
@@ -124,8 +145,13 @@ class EncoderBlock(nn.Module):
         self.layer_norm2 = LayerNorm(width)
         self.mlp = MLP(width, mlp_dim, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.self_attn(self.layer_norm1(x))
+    def forward(self, x: torch.Tensor, sequence_group=None) -> torch.Tensor:
+        """``sequence_group``: the model axis's group when ``x`` holds this
+        rank's tokens; the keys and values then see every rank's."""
+        h = self.layer_norm1(x)
+        kv = h if sequence_group is None else gather_partial(
+            h, 1, sequence_group)
+        x = x + self.self_attn(h, kv)
         return x + self.mlp(self.layer_norm2(x))
 
 
@@ -136,10 +162,153 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(EncoderBlock(width, heads, mlp_dim, dtype)
                                     for _ in range(layers))
 
+    def forward(self, x: torch.Tensor, sequence_group=None) -> torch.Tensor:
+        """With ``sequence_group`` the tokens are this rank's, and each
+        block's parameters pass through ``copy_to_axis``: every rank's
+        tokens add their part of the gradient."""
+        for layer in self.layers:
+            if sequence_group is None:
+                x = layer(x)
+            else:
+                params = {n: copy_to_axis(p, sequence_group)
+                          for n, p in layer.named_parameters()}
+                x = functional_call(layer, params, (x, sequence_group))
+        return x
+
+
+class _StageBlock(nn.Module):
+    """One pipeline stage: ``blocks`` consecutive EncoderBlocks (flax's
+    ``layers_{j}``, torch's ``layers.{j}``)."""
+
+    def __init__(self, blocks: int, width: int, heads: int, mlp_dim: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.layers = nn.ModuleList(EncoderBlock(width, heads, mlp_dim, dtype)
+                                    for _ in range(blocks))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
             x = layer(x)
         return x
+
+
+def _stacked_mirror(template: nn.Module, stages: int) -> nn.Module:
+    """Plain modules with ``template``'s names, each parameter with a
+    leading dim of ``stages``."""
+    node = nn.Module()
+    for name, p in template.named_parameters(recurse=False):
+        node.register_parameter(name, nn.Parameter(
+            torch.empty((stages,) + tuple(p.shape))))
+    for name, child in template.named_children():
+        node.add_module(name, _stacked_mirror(child, stages))
+    return node
+
+
+class PipelinedEncoderStack(nn.Module):
+    """``stages`` GPipe stages x (``layers // stages``) EncoderBlocks, the
+    parameters stacked on a leading stage dim under ``stages``
+    (``parallel/sharding.py`` gives each stage rank its stage's slice).
+    With a mesh whose stage axis is > 1 it runs as GPipe with ``n_micro``
+    microbatches (``parallel/pipeline.py::pipeline_apply``); without one
+    as the sequential loop over the stages (JAX's ``lax.scan``).  The
+    stage's blocks run through ``functional_call`` of one template
+    ``_StageBlock`` (not a submodule) with a stage's slice."""
+
+    def __init__(self, layers: int, stages: int, width: int = WIDTH,
+                 heads: int = HEADS, mlp_dim: int = MLP_DIM,
+                 dtype: Optional[torch.dtype] = None, mesh: Any = None,
+                 n_micro: int = 4):
+        super().__init__()
+        if layers % stages:
+            raise ValueError(
+                f"layers {layers} not divisible by pipeline_stages "
+                f"{stages}")
+        self.n_stages, self.mesh, self.n_micro = stages, mesh, n_micro
+        block = _StageBlock(layers // stages, width, heads, mlp_dim, dtype)
+        object.__setattr__(self, "_block", block)
+        self.stages = _stacked_mirror(block, stages)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        """Each stage drawn as a fresh ``_StageBlock`` (flax's per-stage
+        ``block.init``)."""
+        stacked = dict(self.stages.named_parameters())
+        with torch.no_grad():
+            for s in range(self.n_stages):
+                init_weights(self._block, generator)
+                for name, p in self._block.named_parameters():
+                    stacked[name][s].copy_(p)
+
+    def _block_fn(self, params: Dict[str, torch.Tensor],
+                  x: torch.Tensor) -> torch.Tensor:
+        return functional_call(self._block, params, (x,))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        stacked = dict(self.stages.named_parameters())
+        shape = dict(self.mesh.shape) if self.mesh is not None else {}
+        if shape.get(STAGE_AXIS, 1) > 1:
+            from ..parallel.pipeline import pipeline_apply
+
+            data_axis = DATA_AXIS if shape.get(DATA_AXIS, 1) > 1 else None
+            return pipeline_apply(self.mesh, self._block_fn, stacked, x,
+                                  n_micro=self.n_micro, axis=STAGE_AXIS,
+                                  data_axis=data_axis)
+        for s in range(self.n_stages):
+            x = self._block_fn({k: v[s] for k, v in stacked.items()}, x)
+        return x
+
+
+def _layer_index(key: str) -> int:
+    return int(key.split("_")[1])
+
+
+def unstack_tower_layers(tower_params: dict) -> dict:
+    """Inverse of ``stack_tower_layers`` (numpy flax trees): a pipelined
+    tower (``{"pipeline": {"stages": <stacked>}}``) back to the per-layer
+    ``layers_0..layers_{L-1}`` loop layout."""
+    stacked = tower_params["pipeline"]["stages"]
+    stages = _first_leaf(stacked).shape[0]
+    out = {k: v for k, v in tower_params.items() if k != "pipeline"}
+    per = len(stacked)
+    for s in range(stages):
+        stage = _tree_map(lambda a, s=s: np.asarray(a)[s], stacked)
+        for j in range(per):
+            out[f"layers_{s * per + j}"] = stage[f"layers_{j}"]
+    return out
+
+
+def stack_tower_layers(tower_params: dict, stages: int) -> dict:
+    """One tower's per-layer flax params (``layers_0..layers_{L-1}``, numpy)
+    in the PipelinedEncoderStack layout: ``{"pipeline": {"stages":
+    <stacked>}}``, every leaf gaining a leading S dim (stage s, block j <-
+    layer s * (L / S) + j)."""
+    layer_keys = sorted((k for k in tower_params if k.startswith("layers_")),
+                        key=_layer_index)
+    n_layers = len(layer_keys)
+    if not n_layers or n_layers % stages:
+        raise ValueError(
+            f"{n_layers} layers not divisible by {stages} stages")
+    per = n_layers // stages
+    stage_trees = [{f"layers_{j}": tower_params[layer_keys[s * per + j]]
+                    for j in range(per)} for s in range(stages)]
+    out = {k: v for k, v in tower_params.items()
+           if not k.startswith("layers_")}
+    out["pipeline"] = {"stages": _tree_map(
+        lambda *leaves: np.stack([np.asarray(a) for a in leaves]),
+        *stage_trees)}
+    return out
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], Mapping):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return tree
 
 
 class PackedAttention(MultiHeadDotProductAttention):
@@ -211,6 +380,44 @@ class VisionEmbeddings(nn.Module):
                                         0.02)
 
 
+def _blocks(tower: nn.Module, layers: int, width: int, heads: int,
+            mlp_dim: int, dtype: Optional[torch.dtype],
+            pipeline_stages: int = 0, pipeline_microbatches: int = 4,
+            sequence_sharding: bool = False, mesh: Any = None) -> None:
+    """A tower's blocks: ``encoder`` (``layers_{i}`` in flax), or with
+    ``pipeline_stages`` > 1 the stacked ``pipeline``.  ``sequence_parallel``
+    tells ``parallel/sharding.py`` that the tower's Dense leaves are used
+    whole (gathered), not column by column."""
+    if pipeline_stages > 1:
+        tower.pipeline = PipelinedEncoderStack(
+            layers, pipeline_stages, width, heads, mlp_dim, dtype, mesh,
+            pipeline_microbatches)
+    else:
+        tower.encoder = Encoder(layers, width, heads, mlp_dim, dtype)
+    tower.mesh = mesh
+    tower.sequence_parallel = bool(
+        sequence_sharding and pipeline_stages <= 1 and mesh is not None
+        and mesh.shape.get(MODEL_AXIS, 1) > 1)
+
+
+def _run_blocks(tower: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The blocks on (B, L, width) tokens.  Under sequence sharding each
+    model rank runs them on its L / M tokens (``constrain_model_parallel``
+    to ``(None, "model")``, JAX's ``_maybe_shard_sequence``), and the
+    tokens are gathered after; an indivisible L stays whole.  Within a
+    pipeline the tokens stay whole, as JAX's ``shard_map`` replicates
+    them over the model axis."""
+    if hasattr(tower, "pipeline"):
+        return tower.pipeline(x)
+    mesh = tower.mesh
+    if (not tower.sequence_parallel
+            or x.shape[1] % mesh.shape[MODEL_AXIS]):
+        return tower.encoder(x)
+    group = mesh.model_group
+    x = constrain_model_parallel(x, (None, MODEL_AXIS), mesh)
+    return gather_from_axis(tower.encoder(x, group), 1, group)
+
+
 class SigLIPTextTower(nn.Module):
     """(B, L) token ids, L <= ``text_len`` -> (B, width): the embedding
     gathered in ``dtype`` plus the first L positions, the blocks, the
@@ -219,11 +426,11 @@ class SigLIPTextTower(nn.Module):
     def __init__(self, dtype: Optional[torch.dtype] = None,
                  width: int = WIDTH, layers: int = LAYERS, heads: int = HEADS,
                  mlp_dim: int = MLP_DIM, text_len: int = TEXT_LEN,
-                 vocab: int = VOCAB):
+                 vocab: int = VOCAB, **scaling):
         super().__init__()
         self.dtype = dtype
         self.embeddings = TextEmbeddings(vocab, text_len, width)
-        self.encoder = Encoder(layers, width, heads, mlp_dim, dtype)
+        _blocks(self, layers, width, heads, mlp_dim, dtype, **scaling)
         self.final_layer_norm = LayerNorm(width)
         self.head = Dense(width, width, dtype)
 
@@ -233,7 +440,7 @@ class SigLIPTextTower(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = x + emb.position_embedding.weight[:token_ids.shape[1]].to(x.dtype)
-        x = self.final_layer_norm(self.encoder(x))
+        x = self.final_layer_norm(_run_blocks(self, x))
         return self.head(x[:, -1])  # HF SiglipTextModel: last-token pooling
 
 
@@ -243,10 +450,10 @@ class SigLIPVisionTower(nn.Module):
     def __init__(self, dtype: Optional[torch.dtype] = None,
                  width: int = WIDTH, layers: int = LAYERS, heads: int = HEADS,
                  mlp_dim: int = MLP_DIM, patch: int = PATCH,
-                 image_size: int = IMAGE_SIZE):
+                 image_size: int = IMAGE_SIZE, **scaling):
         super().__init__()
         self.embeddings = VisionEmbeddings(width, patch, image_size, dtype)
-        self.encoder = Encoder(layers, width, heads, mlp_dim, dtype)
+        _blocks(self, layers, width, heads, mlp_dim, dtype, **scaling)
         self.post_layernorm = LayerNorm(width)
         self.head = MAPHead(width, heads, mlp_dim, dtype)
 
@@ -254,7 +461,7 @@ class SigLIPVisionTower(nn.Module):
         emb = self.embeddings
         x = emb.patch_embedding(pixels)
         x = x + emb.position_embedding.weight.to(x.dtype)
-        return self.head(self.post_layernorm(self.encoder(x)))
+        return self.head(self.post_layernorm(_run_blocks(self, x)))
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -273,10 +480,14 @@ class SigLIPModel(nn.Module):
                  width: int = WIDTH, layers: int = LAYERS, heads: int = HEADS,
                  mlp_dim: int = MLP_DIM, patch: int = PATCH,
                  image_size: int = IMAGE_SIZE, text_len: int = TEXT_LEN,
-                 vocab: int = VOCAB):
+                 vocab: int = VOCAB, pipeline_stages: int = 0,
+                 pipeline_microbatches: int = 4,
+                 sequence_sharding: bool = False, mesh: Any = None):
         super().__init__()
         common = dict(dtype=dtype, width=width, layers=layers, heads=heads,
-                      mlp_dim=mlp_dim)
+                      mlp_dim=mlp_dim, pipeline_stages=pipeline_stages,
+                      pipeline_microbatches=pipeline_microbatches,
+                      sequence_sharding=sequence_sharding, mesh=mesh)
         self.text_model = SigLIPTextTower(text_len=text_len, vocab=vocab,
                                           **common)
         self.vision_model = SigLIPVisionTower(patch=patch,
@@ -295,8 +506,42 @@ def port_siglip_state_dict(state: Mapping, model: SigLIPModel
     """Copy an HF ``SiglipModel`` state_dict (numpy or tensor values) into
     ``model`` by name, in place; raises on a missing key or a shape
     mismatch.  Keys the port has no place for (``logit_scale``,
-    ``logit_bias``, ``position_ids``) are ignored."""
+    ``logit_bias``, ``position_ids``) are ignored.  A pipelined tower
+    takes HF's per-layer entries stacked by stage (layer s * (L / S) + j
+    as stage s's block j)."""
+    state = dict(state)
+    for tower in ("text_model", "vision_model"):
+        stack = getattr(getattr(model, tower), "pipeline", None)
+        if stack is not None:
+            state.update(_stacked_hf_layers(state, tower, stack.n_stages))
     return copy_by_name(state, model, what="HF SigLIP")
+
+
+def _stacked_hf_layers(state: Mapping, tower: str, stages: int) -> Dict:
+    """HF's ``{tower}.encoder.layers.{i}.*`` as the pipelined tower's
+    ``{tower}.pipeline.stages.layers.{j}.*``, stacked by stage."""
+    pattern = re.compile(rf"{tower}\.encoder\.layers\.(\d+)\.(.+)")
+    by_layer: Dict[int, Dict[str, Any]] = {}
+    for key, value in state.items():
+        m = pattern.fullmatch(key)
+        if m:
+            by_layer.setdefault(int(m.group(1)), {})[m.group(2)] = value
+    if not by_layer or len(by_layer) % stages:
+        raise ValueError(f"{len(by_layer)} layers not divisible by "
+                         f"{stages} stages")
+    per = len(by_layer) // stages
+    out = {}
+    for j in range(per):
+        for rest in by_layer[j]:
+            out[f"{tower}.pipeline.stages.layers.{j}.{rest}"] = np.stack(
+                [_numpy(by_layer[s * per + j][rest]) for s in range(stages)])
+    return out
+
+
+def _numpy(value) -> np.ndarray:
+    if torch.is_tensor(value):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
 
 
 def load_hf_siglip_params(checkpoint_path: str, model: SigLIPModel

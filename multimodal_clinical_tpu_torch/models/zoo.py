@@ -423,15 +423,22 @@ class Food101FusionNet(nn.Module):
     head and ``x2_model`` the image head, so OGM-GE finds no 4-D leaf under
     the heads and modulates nothing (food101/joint_model_ogm_ge.py).
 
-    x1: (B, L) int token ids; x2: (B, H, W, 3) pixel values."""
+    x1: (B, L) int token ids; x2: (B, H, W, 3) pixel values.
+    ``pipeline_stages``, ``pipeline_microbatches``, ``sequence_sharding``
+    and ``mesh`` are SigLIP's scaling switches (``models/siglip.py``)."""
 
-    def __init__(self, num_classes: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, num_classes: int, dtype: Optional[torch.dtype] = None,
+                 pipeline_stages: int = 0, pipeline_microbatches: int = 4,
+                 sequence_sharding: bool = False, mesh=None):
         super().__init__()
         # siglip.py builds on this module's attention and layer norm; the
         # name is looked up here, as the JAX net looks it up in __call__
         from . import siglip
 
-        self.model = siglip.SigLIPModel(dtype=dtype)
+        self.model = siglip.SigLIPModel(
+            dtype=dtype, pipeline_stages=pipeline_stages,
+            pipeline_microbatches=pipeline_microbatches,
+            sequence_sharding=sequence_sharding, mesh=mesh)
         width = self.model.text_model.head.weight.shape[0]
         self.x1_model = HeadMLP(num_classes, width, dtype=dtype)
         self.x2_model = HeadMLP(num_classes, width, dtype=dtype)

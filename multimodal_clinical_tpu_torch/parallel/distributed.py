@@ -15,11 +15,19 @@ caller asks for it.  The backend follows from that layout: NCCL where
 every local rank has a card of its own, gloo where ranks share a card
 (NCCL refuses two ranks on one device) and on the CPU.
 
-The collectives below are the only ones the port issues.  Each takes the
-group it runs over, and is a no-op on None or a group of one, so a run
-without a group, or with a group of one, computes exactly what the
-single-device code does.  They use ``all_reduce`` and ``barrier`` only,
-which gloo also offers for CUDA tensors.  The ops that see the global
+The collectives below, and the pipeline's hop (``parallel/pipeline.py``),
+are the only ones the port issues.  Each takes the group it runs over,
+and is a no-op on None or a group of one, so a run without a group, or
+with a group of one, computes exactly what the single-device code does.
+They use ``all_reduce``, ``broadcast`` and ``barrier`` only, which gloo
+also offers for CUDA tensors; an all-gather is the all-reduce of a
+zero-padded buffer.  The autograd ones carry tensor parallelism and
+sequence sharding: Megatron's f (``copy_to_axis``: the identity, its
+gradient summed over the axis) and g (``gather_from_axis``: the axis's
+parts gathered, the gradient's own part kept), the entry into a sharded
+region (``scatter_to_axis``: the own part, the gradient gathered) and the
+gather whose consumers differ by rank (``gather_partial``: its gradient
+summed over the axis, then the own part kept).  The ops that see the global
 batch (global BatchNorm, the dropout and SpecAugment draws) read the data
 axis's group from ``axis_group``, which the train and eval steps set for
 their extent (``data_axis``): outside a step, an initialised process
@@ -189,3 +197,109 @@ def rank_rows(global_batch: torch.Tensor, group) -> torch.Tensor:
         return global_batch
     b, r = global_batch.shape[0] // world, group_rank(group)
     return global_batch[r * b:(r + 1) * b]
+
+
+def _sum_(tensor: torch.Tensor, group) -> torch.Tensor:
+    """``all_reduce_sum_`` for any float dtype: gloo sums no bfloat16, so
+    half types go through fp32 (one rounding of the exact sum)."""
+    if group_size(group) == 1:
+        return tensor
+    if tensor.dtype in (torch.bfloat16, torch.float16):
+        return tensor.copy_(all_reduce_sum_(tensor.float(), group))
+    return all_reduce_sum_(tensor, group)
+
+
+def all_gather_dim(local: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``local`` concatenated along ``dim`` in rank order,
+    without gradient."""
+    if group_size(group) == 1:
+        return local
+    return gather_rows(local.movedim(dim, 0).contiguous(),
+                       group).movedim(0, dim)
+
+
+def own_part(full: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's equal part of ``full`` along ``dim``."""
+    world = group_size(group)
+    if world == 1:
+        return full
+    n = full.shape[dim] // world
+    return full.narrow(dim, group_rank(group) * n, n)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_(grad.clone(), ctx.group), None
+
+
+class _GatherFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return own_part(grad, ctx.dim, ctx.group).contiguous(), None, None
+
+
+class _ScatterToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return own_part(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_dim(grad, ctx.dim, ctx.group), None, None
+
+
+class _GatherPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        summed = _sum_(grad.contiguous().clone(), ctx.group)
+        return own_part(summed, ctx.dim, ctx.group).contiguous(), None, None
+
+
+def copy_to_axis(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: ``x`` as it is; its gradient summed over ``group``
+    (each rank's part of a sharded consumer adds its share)."""
+    return x if group_size(group) == 1 else _CopyToAxis.apply(x, group)
+
+
+def gather_from_axis(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Megatron's g: the ranks' parts of ``x`` gathered along ``dim``; the
+    consumers are the same on every rank, so the gradient's own part is
+    this rank's gradient."""
+    if group_size(group) == 1:
+        return x
+    return _GatherFromAxis.apply(x, dim, group)
+
+
+def scatter_to_axis(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's part of the replicated ``x`` along ``dim``; the
+    gradient gathered, so the producers' gradient is whole on every
+    rank."""
+    if group_size(group) == 1:
+        return x
+    return _ScatterToAxis.apply(x, dim, group)
+
+
+def gather_partial(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' parts of ``x`` gathered along ``dim`` for consumers that
+    differ by rank (a sequence shard's queries over every key): the
+    gradient summed over ``group``, then its own part kept."""
+    if group_size(group) == 1:
+        return x
+    return _GatherPartial.apply(x, dim, group)

@@ -21,11 +21,12 @@ import yaml
 from multimodal_clinical_tpu import benchmarks as jax_benchmarks
 from multimodal_clinical_tpu.benchmarks import vggsound as jax_vggsound
 from multimodal_clinical_tpu.config import setup_configs as jax_setup_configs
+from multimodal_clinical_tpu.engine import run as jax_run
 
 import multimodal_clinical_tpu_torch.__main__ as port_main
 from multimodal_clinical_tpu_torch import benchmarks, config
 from multimodal_clinical_tpu_torch.benchmarks import (
-    available, get_benchmark, vggsound,
+    available, food101, get_benchmark, vggsound,
 )
 from multimodal_clinical_tpu_torch.config.merge import safe_load
 from multimodal_clinical_tpu_torch.data.synthetic import make_synthetic_splits
@@ -167,25 +168,40 @@ def test_multiseed_cli_writes_seeds_csv(tmp_path):
 @pytest.mark.parametrize("key,value", [("fsdp", True),
                                        ("pipeline_stages", 2),
                                        ("mesh_shape", {"data": 8})])
-def test_parallel_settings_raise(key, value):
-    """In one process: ``pipeline_stages`` raises naming ROADMAP.md item
-    18b, a data axis of 8 over one device raises the JAX ``make_mesh``
-    error, and ``fsdp`` raises nothing: at world size 1 the JAX rule
-    shards no leaf, so the state stays whole."""
+def test_parallel_settings_raise(key, value, tmp_path, monkeypatch):
+    """In one process: ``pipeline_stages`` on VGGSound, whose
+    ``get_model_spec`` takes no mesh, raises the JAX package's error
+    (``engine/run.py``), a data axis of 8 over one device raises the JAX
+    ``make_mesh`` error, and ``fsdp`` raises nothing: at world size 1 the
+    JAX rule shards no leaf, so the state stays whole."""
     args = SimpleNamespace(**{key: value})
     if key == "fsdp":
-        run._refuse_parallel_settings(args)
         mesh = run.make_mesh(getattr(args, "mesh_shape", None))
         state = SimpleNamespace(model=torch.nn.Linear(512, 512),
                                 optimizer=None)
-        assert run.place_state(state, mesh, fsdp=value).fsdp is None
+        assert run.place_state(state, mesh, fsdp=value).sharded is None
         return
     if key == "mesh_shape":
         with pytest.raises(ValueError, match="mesh 8x1x1 != 1 devices"):
             run.run_benchmark(args, vggsound, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        run.run_benchmark(args, vggsound, device="cpu")
+    from multimodal_clinical_tpu.data import synthetic as jax_syn
+    from multimodal_clinical_tpu_torch.data import synthetic as port_syn
+
+    # the error comes after the data: a narrow twin
+    for syn in (jax_syn, port_syn):
+        monkeypatch.setitem(syn.BENCHMARK_SHAPES, "vggsound",
+                            [(9, 12, 1), (2, 6, 6, 3)])
+    argv = ["--dir", "vggsound", "--set", f"{key}={value}",
+            "--set", f"data_path={tmp_path}/none"]
+    with pytest.raises(NotImplementedError) as want:
+        jax_run.run_benchmark(jax_setup_configs(argv), jax_vggsound)
+    assert "does not accept a mesh" in str(want.value)
+    with pytest.raises(NotImplementedError) as got:
+        port_main.run_training(argv, device="cpu")
+    assert str(got.value) == str(want.value)
+    assert not run._accepts_mesh(vggsound)
+    assert run._accepts_mesh(food101)
 
 
 def test_vggsound_get_data_equals_jax(monkeypatch, tmp_path):

@@ -171,17 +171,6 @@ def test_legacy_weights_under_siglip_types_raise_like_jax(key):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("key,value", [("pipeline_stages", 2),
-                                       ("sequence_sharding", True)])
-def test_parallel_settings_raise_naming_item_18(tmp_path, key, value):
-    """The JAX package's GPipe towers and sequence sharding: the CLI
-    (``engine/run.py``) refuses them before any work."""
-    with pytest.raises(NotImplementedError, match="item 18"):
-        port_main.run_training(
-            ["--dir", "food101", "--set", f"{key}={value}",
-             "--set", f"data_path={tmp_path}/none"], device="cpu")
-
-
 def _data_args(path, model_type="qmf"):
     return SimpleNamespace(data_path=str(path) + "/", num_classes=101,
                            seed=5, model_type=model_type)

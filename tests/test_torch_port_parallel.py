@@ -408,8 +408,8 @@ def test_fsdp_dim_matches_jax_on_shapes():
 
 def test_mesh_shapes_and_errors_match_jax(group):
     """``make_mesh`` over the two ranks, beside JAX's over two devices:
-    the same axis sizes, the same error for sizes that do not multiply
-    to the device count; the model and stage axes raise naming 18b."""
+    the same axis sizes, the model and stage meshes included, and the
+    same error for sizes that do not multiply to the device count."""
     got = _result(group, "mesh")
     devices = jax.devices()[:2]
     want = jax_mesh.make_mesh(devices=devices)
@@ -419,10 +419,10 @@ def test_mesh_shapes_and_errors_match_jax(group):
     with pytest.raises(ValueError) as exc:
         jax_mesh.make_mesh({"data": 4}, devices=devices)
     assert got["data4"] == ("ValueError", str(exc.value))
-    jax_mesh.make_mesh({"model": 2}, devices=devices)  # JAX runs these
-    for name in ("model2", "stage2"):
-        kind, msg = got[name]
-        assert kind == "NotImplementedError" and "item 18b" in msg
+    for name, shape in (("model2", {"model": 2}),
+                        ("stage2", {"data": 1, "stage": 2})):
+        assert got[name] == dict(jax_mesh.make_mesh(
+            shape, devices=devices).shape), name
     assert group["ranks"][0]["backend"] == "gloo"
     assert [r["rank"] for r in group["ranks"]] == [0, 1]
     assert all(r["world"] == 2 and r["device"] == "cpu"
@@ -437,16 +437,6 @@ def test_mesh_in_one_process():
         mesh.make_mesh({"data": 8})
     assert mesh.local_device_count() == 1
     assert mesh.batch_sharding(mesh.make_mesh(), 16) == slice(0, 16)
-
-
-@pytest.mark.parametrize("settings", [
-    {"pipeline_stages": 2}, {"sequence_sharding": True},
-    {"mesh_shape": {"model": 1, "stage": 1}, "pipeline_stages": 4}])
-def test_item_18b_settings_raise(settings):
-    """What stays refused, before any work: the stage axis's GPipe and
-    sequence sharding, naming ROADMAP.md item 18b."""
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        run._refuse_parallel_settings(SimpleNamespace(**settings))
 
 
 # -- global BatchNorm ------------------------------------------------------
